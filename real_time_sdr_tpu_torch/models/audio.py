@@ -1,0 +1,120 @@
+"""Audio chains: mono extraction and tier-3 stereo matrixing.
+
+Port of ``real_time_sdr_tpu/models/audio.py`` (tier 3 only). The stereo
+chain: pilot BPF 18.5-19.5 kHz -> feedforward sync -> 38 kHz carrier;
+stereo BPF 22-54 kHz -> x carrier x2 -> baseband L-R; mono through an
+all-pass delay for group-delay alignment; both rails resampled to the audio
+rate in ONE FIR-bank call (the rails stacked as batch rows); L = M+S,
+R = M-S.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from real_time_sdr_tpu import config as C
+from real_time_sdr_tpu.config import ReceiverConfig
+from real_time_sdr_tpu.ops import filters
+from real_time_sdr_tpu_torch.ops.fir import PolyFIR, make_bank, state_len
+from real_time_sdr_tpu_torch.ops.pll import PllParams
+from real_time_sdr_tpu_torch.ops.sync import FeedforwardSync, FFSyncCarry
+
+__all__ = ["MonoState", "MonoPath", "StereoState", "StereoPath"]
+
+
+def _audio_fir(cfg: ReceiverConfig) -> PolyFIR:
+    """Polyphase audio LPF: designed at if_fs*up with taps*up and gain up."""
+    up = cfg.audio_up
+    h = filters.design_lpf(cfg.if_fs * up, cfg.audio_fc, cfg.rf_taps * up,
+                           gain=up)
+    return PolyFIR(h, up=up, down=cfg.audio_down)
+
+
+def _zeros(batch: int, n: int, device) -> torch.Tensor:
+    return torch.zeros((batch, n), dtype=torch.float32, device=device)
+
+
+class MonoState(NamedTuple):
+    audio_tail: torch.Tensor
+
+
+class MonoPath(nn.Module):
+    """fm_demod -> audio-rate mono samples (float; int16 in utils.audio)."""
+
+    def __init__(self, cfg: ReceiverConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.audio_fir = _audio_fir(cfg)
+        self.audio_bank = make_bank([self.audio_fir])
+
+    def init_state(self, batch: int) -> MonoState:
+        return MonoState(_zeros(batch, self.audio_fir.tail_len,
+                                self.audio_bank.taps.device))
+
+    def forward(self, demod: torch.Tensor, state: MonoState):
+        (audio,), tail = self.audio_bank(demod, state.audio_tail)
+        return audio, MonoState(tail)
+
+
+class StereoState(NamedTuple):
+    # one tail serves both the pilot and stereo band BPFs (shared input)
+    pilot_tail: torch.Tensor
+    delay_tail: torch.Tensor
+    mono_tail: torch.Tensor
+    stereo_tail: torch.Tensor
+    pll: FFSyncCarry
+
+
+class StereoPath(nn.Module):
+    """fm_demod -> (left, right) audio via the 19 kHz pilot + DSB-SC mix."""
+
+    def __init__(self, cfg: ReceiverConfig, pll_tier: int = 3):
+        super().__init__()
+        if pll_tier != 3:
+            raise NotImplementedError(
+                f"pll_tier={pll_tier}: only tier 3 (feedforward sync) is "
+                "ported")
+        self.cfg = cfg
+        fs_if = cfg.rf_fs // cfg.rf_decim
+        self.pilot_fir = PolyFIR(
+            filters.design_bpf(fs_if, *C.PILOT_BAND, cfg.rf_taps))
+        self.band_fir = PolyFIR(
+            filters.design_bpf(fs_if, *C.STEREO_BAND, cfg.rf_taps))
+        self.delay_fir = PolyFIR(filters.design_apf(cfg.rf_taps))
+        self.mono_fir = _audio_fir(cfg)   # serves both rails
+        self.pb_bank = make_bank([self.pilot_fir, self.band_fir])
+        self.resamp_bank = make_bank([self.mono_fir])
+        self.pll_params = PllParams(freq=int(C.PILOT_FREQ), fs=fs_if,
+                                    nco_scale=2.0)
+        self.sync = FeedforwardSync(self.pll_params)
+
+    def init_state(self, batch: int) -> StereoState:
+        dev = self.pb_bank.taps.device
+        k = state_len(self.cfg.rf_taps)
+        return StereoState(
+            pilot_tail=_zeros(batch, k, dev), delay_tail=_zeros(batch, k, dev),
+            mono_tail=_zeros(batch, self.mono_fir.tail_len, dev),
+            stereo_tail=_zeros(batch, self.mono_fir.tail_len, dev),
+            pll=self.sync.init(batch))
+
+    def forward(self, demod: torch.Tensor, state: StereoState, shared=None):
+        """shared: optional (pilot, band, new_tail) from the receiver's IF
+        band bank, which the stereo and RDS band filters share."""
+        if shared is not None:
+            pilot, band, pilot_tail = shared
+        else:
+            (pilot, band), pilot_tail = self.pb_bank(demod, state.pilot_tail)
+        carrier, pll = self.sync(pilot, state.pll)
+        stereo_dc = 2.0 * band * carrier
+        mono_delay, delay_tail = self.delay_fir(demod, state.delay_tail)
+        rails = torch.stack([mono_delay, stereo_dc], dim=-2)    # (C, 2, n)
+        tails = torch.stack([state.mono_tail, state.stereo_tail], dim=-2)
+        (ys,), new_tails = self.resamp_bank(rails, tails)
+        mono, sub = ys[..., 0, :], ys[..., 1, :]
+        new_state = StereoState(pilot_tail, delay_tail,
+                                new_tails[..., 0, :].contiguous(),
+                                new_tails[..., 1, :].contiguous(), pll)
+        return (mono + sub, mono - sub), new_state

@@ -1,0 +1,13 @@
+"""Hand-written CUDA kernels for Hopper (sources in ``csrc/``), each beside
+its plain PyTorch version and with a launch count.
+
+Importing this package builds nothing: ``_build.library()`` compiles the
+sources on the first launch.
+"""
+
+from real_time_sdr_tpu_torch.ops.cuda.fir_bank import fir_bank
+from real_time_sdr_tpu_torch.ops.cuda.frontend_fused import frontend_fused
+
+KERNELS = (frontend_fused, fir_bank)
+
+__all__ = ["KERNELS", "fir_bank", "frontend_fused"]

@@ -1,0 +1,231 @@
+"""Streaming FIRs with overlap-save carried state: polyphase resampling,
+same-geometry banks, and the dual-phase frontend LPF.
+
+Port of ``real_time_sdr_tpu/ops/fir.py``. Every (up, down) FIR reduces to
+one framed matmul: group R consecutive outputs (R = up*g, g chosen so R is
+~128) into a frame; the frame reads a J-sample window of the tail-prefixed
+input advancing by g*down samples per frame,
+
+    y[c*R + r] = sum_j xx[c*g*down + j] * W[j, r]
+    W[j, r]    = h[p_r + up*m]   at j = T-1 + qr_r - m, else 0
+
+with p_r = (r*down) % up, qr_r = (r*down) // up, T = ceil(K/up). The same
+outputs in direct form are y[n] = sum_m h[p_n + up*m] xx[q_n + T-1 - m],
+which is what the CUDA FIR-bank kernel computes (ops/cuda/fir_bank.py).
+
+State contract: the carry holds the last ``T-1`` input samples. A
+single-nonzero-tap filter (the all-pass delay) lowers to a scaled slice.
+
+- ``PolyFIR``: host-side design + plan; calling it runs the plain framed
+  matmul (or the delay slice) on any device.
+- ``FIRBank`` / ``make_bank``: an nn.Module holding the taps and weights
+  as buffers; on a CUDA tensor it launches the FIR-bank kernel.
+- ``DualPhaseFIR``: the frontend's decimating I/Q LPF applied straight to
+  the interleaved u8 stream, the plain half of the fused frontend.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from real_time_sdr_tpu_torch.ops.cuda.fir_bank import (MAX_NF, BankGeometry,
+                                                       fir_bank,
+                                                       fir_bank_plain)
+
+__all__ = ["state_len", "PolyFIR", "FIRBank", "make_bank", "DualPhaseFIR"]
+
+TARGET_FRAME = 128  # outputs per frame of the plain framed matmul (~R)
+
+
+def state_len(num_taps: int, up: int = 1) -> int:
+    """Carried input samples: ceil(num_taps/up) - 1."""
+    return -(-num_taps // up) - 1
+
+
+def _tail_of(xx: torch.Tensor, n: int) -> torch.Tensor:
+    return xx[..., xx.shape[-1] - n:].contiguous() if n else xx[..., :0]
+
+
+class PolyFIR:
+    """A designed FIR bound to static (up, down) resampling factors.
+
+        f = PolyFIR(h, up=247, down=640)
+        y, new_tail = f(x, tail)        # x: (..., N), tail: (..., T-1)
+
+    y has N*up//down samples (C++ truncation). Calling runs the plain
+    framed matmul; ``make_bank`` binds FIRs to the kernel.
+    """
+
+    def __init__(self, h: np.ndarray, up: int = 1, down: int = 1):
+        h = np.asarray(h, dtype=np.float64)
+        if h.ndim != 1:
+            raise ValueError(f"taps must be 1-D, got shape {h.shape}")
+        self.up = int(up)
+        self.down = int(down)
+        self.num_taps = K = h.shape[0]
+        self.T = -(-K // self.up)
+        self._h = h
+        nz = np.nonzero(h)[0]
+        self.single_tap = len(nz) == 1 and self.up == 1 and self.down == 1
+        self._tap_pos = int(nz[0]) if len(nz) else 0
+        self._tap_gain = float(h[self._tap_pos]) if len(nz) else 0.0
+        g = max(1, round(TARGET_FRAME / self.up))
+        R = g * self.up
+        rs = np.arange(R, dtype=np.int64)
+        self._p = (rs * self.down) % self.up
+        self._qr = (rs * self.down) // self.up
+        J = self.T + int(self._qr.max())
+        stride = g * self.down
+        self.geometry = BankGeometry(up=self.up, down=self.down, num_taps=K,
+                                     R=R, stride=stride, J=J,
+                                     s_over=-(-J // stride))
+        self._w: np.ndarray | None = None
+
+    @property
+    def h(self) -> np.ndarray:
+        """The float64 taps."""
+        return self._h
+
+    @property
+    def tail_len(self) -> int:
+        return self.T - 1
+
+    def weights(self) -> np.ndarray:
+        """(J, R) float32 polyphase weight matrix of the framed matmul."""
+        if self._w is None:
+            gm, T, K, up = self.geometry, self.T, self.num_taps, self.up
+            W = np.zeros((gm.J, gm.R), dtype=np.float64)
+            for r in range(gm.R):
+                for m in range(T):
+                    k = self._p[r] + up * m
+                    if k < K:
+                        W[T - 1 + self._qr[r] - m, r] = self._h[k]
+            self._w = W.astype(np.float32)
+        return self._w
+
+    def __call__(self, x: torch.Tensor, tail: torch.Tensor):
+        """Apply to one block. x: (..., N); tail: (..., T-1).
+
+        Returns (y, new_tail) with y: (..., N*up//down)."""
+        n = x.shape[-1]
+        xx = torch.cat([tail, x.to(tail.dtype)], dim=-1)
+        if self.single_tap:
+            # pure delay: y[n] = h[pos] * xx[T-1 + n - pos]
+            start = self.T - 1 - self._tap_pos
+            y = self._tap_gain * xx[..., start:start + n]
+        else:
+            w = torch.as_tensor(self.weights(), device=x.device)
+            L = xx.shape[-1]
+            y = fir_bank_plain(xx.reshape(-1, L), w, self.geometry)[:, 0]
+            y = y.reshape(x.shape[:-1] + (y.shape[-1],))
+        return y, _tail_of(xx, self.tail_len)
+
+
+def _check_bank(firs: list[PolyFIR]) -> None:
+    f0 = firs[0]
+    if any(f.geometry != f0.geometry for f in firs):
+        raise ValueError("bank filters must share (up, down, num_taps)")
+    if f0.single_tap:
+        raise ValueError("a single-tap delay lowers to a slice, not a bank")
+    if not 1 <= len(firs) <= MAX_NF:
+        raise ValueError(f"a bank holds 1..{MAX_NF} filters, got {len(firs)}")
+
+
+class FIRBank(nn.Module):
+    """Same-geometry FIRs bound to the FIR-bank kernel.
+
+    ``bank(x, tail) -> ([y_0, ..., y_{nf-1}], new_tail)`` with the PolyFIR
+    state contract; every leading dim of x is a batch row. Taps and the
+    plain version's weights are buffers, so ``.to(device)`` moves them.
+    """
+
+    def __init__(self, firs: list[PolyFIR]):
+        super().__init__()
+        _check_bank(firs)
+        self.geometry = firs[0].geometry
+        self.nf = len(firs)
+        self._tail_len = firs[0].tail_len
+        self.register_buffer("taps", torch.as_tensor(
+            np.stack([f.h for f in firs]).astype(np.float32)))
+        self.register_buffer("w", torch.as_tensor(
+            np.concatenate([f.weights() for f in firs], axis=1)))
+
+    @property
+    def tail_len(self) -> int:
+        return self._tail_len
+
+    def forward(self, x: torch.Tensor, tail: torch.Tensor):
+        xx = torch.cat([tail, x.to(tail.dtype)], dim=-1)
+        L = xx.shape[-1]
+        y = fir_bank(xx.reshape(-1, L), self.taps, self.w, self.geometry)
+        y = y.reshape(x.shape[:-1] + y.shape[1:])     # (..., nf, n_out)
+        return ([y[..., i, :] for i in range(self.nf)],
+                _tail_of(xx, self._tail_len))
+
+
+def make_bank(firs: list[PolyFIR]) -> FIRBank:
+    """Bind same-geometry FIRs to one kernel launch per call."""
+    return FIRBank(firs)
+
+
+class DualPhaseFIR(nn.Module):
+    """Decimating LPF applied directly to an INTERLEAVED u8 I/Q stream.
+
+    Filtering the even (I) and odd (Q) bytes of the interleaved stream s
+    with stride-2 taps folds both phases into one framed matmul whose
+    weight matrix carries the I- and Q-columns side by side:
+
+        I_ds[n] = sum_k h[k] * (s[2(n*down - k)] - 128) / 128
+        Q_ds[n] = sum_k h[k] * (s[2(n*down - k) + 1] - 128) / 128
+
+    The carried tail is 2K-2 raw bytes. (x - 128) is exact in f32 and the
+    /128 folds into the weights. Buffers: ``w`` (J, 2R) for the framed
+    matmul and ``taps`` (K,) = h/128 for the fused kernel.
+    """
+
+    def __init__(self, h: np.ndarray, down: int):
+        super().__init__()
+        h = np.asarray(h, dtype=np.float64)
+        self.down = int(down)
+        self.num_taps = K = h.shape[0]
+        R = self.R = TARGET_FRAME
+        k2 = 2 * K - 1               # span of the zero-stuffed taps
+        dprime = 2 * self.down       # interleaved stride per output
+        self.J = J = dprime * (R - 1) + k2 + 1   # +1 for the Q offset
+        W = np.zeros((J, 2 * R), dtype=np.float64)
+        for r in range(R):
+            for k in range(K):
+                j = r * dprime + (k2 - 1) - 2 * k
+                W[j, r] = h[k]
+                W[j + 1, R + r] = h[k]
+        self.stride = R * dprime
+        self.s_over = -(-J // self.stride)
+        self.register_buffer("w", torch.as_tensor(
+            W.astype(np.float32) / np.float32(128.0)))
+        self.register_buffer("taps", torch.as_tensor(
+            h.astype(np.float32) / np.float32(128.0)))
+
+    @property
+    def tail_len(self) -> int:
+        return 2 * self.num_taps - 2
+
+    def forward(self, xx_u8: torch.Tensor):
+        """xx_u8: (..., 2K-2 + 2N) tail-prefixed u8 -> (I, Q) (..., N//down)
+        float32."""
+        lead, L = xx_u8.shape[:-1], xx_u8.shape[-1]
+        n_out = ((L - self.tail_len) // 2) // self.down
+        R, stride = self.R, self.stride
+        c_frames = -(-n_out // R)
+        pad_to = (c_frames + self.s_over) * stride
+        xf = xx_u8.reshape(-1, L).to(torch.float32) - 128.0
+        xf = (torch.nn.functional.pad(xf, (0, pad_to - L)) if pad_to >= L
+              else xf[:, :pad_to])       # zero pad == byte 128 == no signal
+        rows = xf.reshape(xf.shape[0], -1, stride)
+        frames = torch.cat([rows[:, s:s + c_frames]
+                            for s in range(self.s_over)], dim=-1)[..., :self.J]
+        y = frames @ self.w                             # (B, c_frames, 2R)
+        i_ds = y[..., :R].reshape(lead + (-1,))[..., :n_out]
+        q_ds = y[..., R:].reshape(lead + (-1,))[..., :n_out]
+        return i_ds, q_ds

@@ -1,0 +1,249 @@
+"""The port's mode-0 receiver slice against the JAX package's receiver.
+
+Two synthetic stations run as one 2-channel batch through the port and one
+at a time through JAX ``run_segment`` (tier 3). The JAX side runs its TPU
+default frontend, the fused Pallas kernel, in interpret mode: like the
+port's kernel it computes (x - 128) exactly. Its CPU (XLA) frontend instead
+subtracts a folded -128 offset after the matmul, which leaves ~1e-8 noise
+where the cold-start signal is exactly zero, and the 57 kHz RDS carrier's
+sign (a 180-degree ambiguity) is decided by the angle of the first nonzero
+sync-filter outputs, ~1e-31 in magnitude: the two JAX frontends themselves
+decode the RDS carrier with opposite signs.
+
+Bounds: audio > 60 dB (the chain gate), RDS bits equal, and PS/PI/PTY
+exact through the port's own framer. Carried state crosses from JAX to the
+port mid-stream. The port's jax-free copies (code constants, station
+synthesis, framer) are held equal to the originals.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from real_time_sdr_tpu.models.rds_framing import RdsFramer as JRdsFramer
+from real_time_sdr_tpu.models.receiver import Receiver as JReceiver
+from real_time_sdr_tpu.ops import rds_bits as jbits
+from real_time_sdr_tpu.utils import synth as jsynth
+from real_time_sdr_tpu_torch.models.frontend import Frontend
+from real_time_sdr_tpu_torch.models.rds_framing import PTY_NAMES, RdsFramer
+from real_time_sdr_tpu_torch.models.receiver import Receiver
+from real_time_sdr_tpu_torch.ops import fir as tfir
+from real_time_sdr_tpu_torch.ops import rds_codes
+from real_time_sdr_tpu_torch.ops.cuda import fir_bank, frontend_fused
+from real_time_sdr_tpu_torch.utils import synth as tsynth
+from real_time_sdr_tpu_torch.utils.audio import mono_pcm, stereo_pcm
+from real_time_sdr_tpu_torch.utils.state import (state_from_numpy,
+                                                 state_to_numpy)
+
+REPO = Path(__file__).resolve().parents[1]
+N_BLOCKS = 30           # PS needs ~30 blocks to decode (tier 3, warm-up)
+STATIONS = [dict(ps_name="TORCH-FM", pi=0x1357, pty=6),
+            dict(ps_name="PORT 90 ", pi=0x2B9A, pty=11, tone_left=700.0,
+                 tone_right=1500.0)]
+
+
+def _snr(ref, y):
+    ref = np.asarray(ref, np.float64)
+    e = np.asarray(y, np.float64) - ref
+    return 10 * np.log10(np.sum(ref ** 2) / max(np.sum(e ** 2), 1e-30))
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _stack(trees):
+    return jax.tree_util.tree_map(lambda *a: np.stack(a), *trees)
+
+
+def _decode(bits, n_bits):
+    """Feed (nb, max_bits) bits with (nb,) counts through the port framer."""
+    fr = RdsFramer()
+    for b in range(bits.shape[0]):
+        fr.feed(bits[b][:n_bits[b]])
+    return fr.events
+
+
+@pytest.fixture(scope="module")
+def slice_run():
+    """2-channel port run vs per-channel JAX runs over N_BLOCKS blocks."""
+    jrx = JReceiver(0, stereo=True, rds=True, pll_tier=3,
+                    frontend_impl="pallas_interpret")
+    iq = np.stack([jsynth.station_iq(jrx.cfg, N_BLOCKS, **kw)[0]
+                   for kw in STATIONS])
+    run = jax.jit(jrx.run_segment)
+    jouts = [run(jrx.init_state(), jnp.asarray(iq[c]))[1]
+             for c in range(len(STATIONS))]
+    rx = Receiver(0, stereo=True, rds=True, pll_tier=3)
+    _, out = rx.run_segment(rx.init_state(len(STATIONS)),
+                            torch.from_numpy(iq))
+    return rx, out, jouts
+
+
+def test_slice_audio_matches_jax(slice_run):
+    rx, out, jouts = slice_run
+    n_audio = N_BLOCKS * rx.cfg.audio_block
+    assert out.left.shape == out.right.shape == (len(STATIONS), n_audio)
+    for c, jo in enumerate(jouts):
+        for port, ref in ((out.left[c], jo.left), (out.right[c], jo.right)):
+            assert np.isfinite(port.numpy()).all()
+            assert _snr(ref, port) > 60.0, _snr(ref, port)
+
+
+def test_slice_rds_bits_equal_and_decoded(slice_run):
+    rx, out, jouts = slice_run
+    for c, (jo, kw) in enumerate(zip(jouts, STATIONS)):
+        np.testing.assert_array_equal(out.rds_nbits[c].numpy(),
+                                      np.asarray(jo.rds_nbits))
+        np.testing.assert_array_equal(out.rds_bits[c].numpy(),
+                                      np.asarray(jo.rds_bits))
+        ev = _decode(out.rds_bits[c].numpy(), out.rds_nbits[c].numpy())
+        assert ev.ps_name == kw["ps_name"]
+        assert ev.pi == kw["pi"]
+        assert ev.pty == PTY_NAMES[kw["pty"]]
+
+
+def test_mono_receiver_matches_jax():
+    jrx = JReceiver(0)
+    rng = np.random.default_rng(4)
+    n = jrx.cfg.block_size_iq * 4
+    tone = np.sin(2 * np.pi * 1000.0 * np.arange(n) / jrx.cfg.rf_fs)
+    iq = np.stack([jsynth.fm_iq(jrx.cfg.rf_fs, n, mono=tone),
+                   jsynth.fm_iq(jrx.cfg.rf_fs, n, mono=tone, noise_std=0.05,
+                                noise_seed=int(rng.integers(9)))])
+    rx = Receiver(0)
+    _, out = rx.run_segment(rx.init_state(2), torch.from_numpy(iq))
+    assert out.left is None and out.rds_bits is None
+    for c in range(2):
+        _, jo = jrx.run_segment(jrx.init_state(), jnp.asarray(iq[c]))
+        assert _snr(jo.mono, out.mono[c]) > 60.0
+    pcm = mono_pcm(out.mono)
+    assert pcm.dtype == torch.int16 and pcm.shape == out.mono.shape
+
+
+def test_state_carried_over_from_jax():
+    """JAX runs blocks 0-5; its state converts; the port runs blocks 6-11
+    and matches JAX's own blocks 6-11. The port's state round-trips."""
+    jrx = JReceiver(0, stereo=True, rds=True, pll_tier=3,
+                    frontend_impl="pallas_interpret")
+    cfg = jrx.cfg
+    half = 6 * 2 * cfg.block_size_iq
+    iq = np.stack([jsynth.station_iq(cfg, 12, **kw)[0] for kw in STATIONS])
+    run = jax.jit(jrx.run_segment)
+    mids, refs = [], []
+    for c in range(len(STATIONS)):
+        st, _ = run(jrx.init_state(), jnp.asarray(iq[c, :half]))
+        mids.append(_np_tree(st))
+        refs.append(run(st, jnp.asarray(iq[c, half:]))[1])
+    rx = Receiver(0, stereo=True, rds=True, pll_tier=3)
+    state = state_from_numpy(_stack(mids))
+    assert int(state.rds.block_count[0]) == 6
+    assert state.rds.bits.first.dtype == torch.bool
+    assert state.frontend.iq_tail.dtype == torch.uint8
+    new_state, out = rx.run_segment(state, torch.from_numpy(iq[:, half:]))
+    for c, ref in enumerate(refs):
+        assert _snr(ref.left, out.left[c]) > 60.0
+        assert _snr(ref.right, out.right[c]) > 60.0
+        np.testing.assert_array_equal(out.rds_bits[c].numpy(),
+                                      np.asarray(ref.rds_bits))
+        np.testing.assert_array_equal(out.rds_nbits[c].numpy(),
+                                      np.asarray(ref.rds_nbits))
+    back = state_to_numpy(new_state)
+    again = state_from_numpy(back)
+    for a, b in zip(jax.tree_util.tree_leaves(new_state),
+                    jax.tree_util.tree_leaves(again)):
+        assert a.dtype == b.dtype
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert type(back).__name__ == "ReceiverState"
+    pcm = stereo_pcm(out.left, out.right)
+    assert pcm.shape == (2, 2 * out.left.shape[-1])
+    np.testing.assert_array_equal(
+        pcm[:, 0::2].numpy(),
+        np.clip(16384 * out.left.numpy(), -32768, 32767).astype(np.int16))
+
+
+def test_rds_code_constants_equal():
+    assert rds_codes.OFFSET_WORDS == jbits.OFFSET_WORDS
+    assert rds_codes.OFFSET_SYNDROMES == jbits.OFFSET_SYNDROMES
+    np.testing.assert_array_equal(rds_codes.parity_matrix_np(),
+                                  jbits.parity_matrix_np())
+    for v in (0, 1, 0x3A5C, 0xFFFF, 0x2B9A):
+        assert rds_codes._crc_remainder(v, 16) == jbits._crc_remainder(v, 16)
+
+
+def test_station_iq_copy_identical():
+    cfg = JReceiver(0).cfg
+    kw = dict(ps_name="COPYTEST", pi=0x1111, pty=3, radiotext="HELLO PORT",
+              ptyn="PTYNAME", clock=(2026, 10, 16, 9, 30), af_mhz=(98.1,))
+    a, ta = jsynth.station_iq(cfg, 2, **kw)
+    b, tb = tsynth.station_iq(cfg, 2, **kw)
+    np.testing.assert_array_equal(a, b)
+    assert ta["bits"] == tb["bits"]
+
+
+def test_framer_copy_events_identical(slice_run):
+    """Same bit stream (with a few flipped bits) -> identical events."""
+    rx, out, jouts = slice_run
+    bits = out.rds_bits[0].numpy()
+    n = out.rds_nbits[0].numpy()
+    stream = np.concatenate([bits[b][:n[b]] for b in range(len(n))])
+    stream[[40, 300, 301, 555]] ^= 1
+    seen_j, seen_t = [], []
+    fj = JRdsFramer(on_event=lambda k, v: seen_j.append((k, v)))
+    ft = RdsFramer(on_event=lambda k, v: seen_t.append((k, v)))
+    for chunk in np.array_split(stream, 7):
+        fj.feed(chunk)
+        ft.feed(chunk)
+    assert seen_t == seen_j and len(seen_t) > 0
+    assert vars(ft.events) == vars(fj.events)
+    assert ft.state_dict() == fj.state_dict()
+
+
+def test_port_runs_without_jax():
+    """Importing the port and running a CPU run_segment loads no jax (a
+    subprocess: this test process already imported jax)."""
+    code = textwrap.dedent("""
+        import sys
+        import torch
+        from real_time_sdr_tpu_torch.models.receiver import Receiver
+        from real_time_sdr_tpu_torch.models.rds_framing import RdsFramer
+        from real_time_sdr_tpu_torch.utils import state, synth, audio
+        rx = Receiver(0, stereo=True, rds=True, pll_tier=3)
+        iq, _ = synth.station_iq(rx.cfg, 2)
+        st, out = rx.run_segment(rx.init_state(1),
+                                 torch.from_numpy(iq)[None])
+        assert out.left.shape == (1, 2 * rx.cfg.audio_block)
+        assert "jax" not in sys.modules, sorted(
+            m for m in sys.modules if m.startswith("jax"))
+        print("ok")
+    """)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_meta_tensors_raise():
+    """A tensor on any device but CPU or CUDA takes no route."""
+    fe = Frontend(JReceiver(0).cfg).to("meta")
+    xx = torch.empty((1, fe.tail_len + 2940), dtype=torch.uint8,
+                     device="meta")
+    z = torch.empty((1,), device="meta")
+    with pytest.raises(ValueError):
+        frontend_fused(xx, fe.rf_fir, z, z)
+    bank = tfir.make_bank([tfir.PolyFIR(np.hanning(11))]).to("meta")
+    with pytest.raises(ValueError):
+        fir_bank(torch.empty((2, 40), device="meta"), bank.taps, bank.w,
+                 bank.geometry)
+    with pytest.raises(ValueError):
+        Receiver(0, device="meta")
