@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one card and check it.
+"""Drive the PyTorch/CUDA port's paths once on one card and check them.
 
-    python3 chip_smoke.py [--profile PATH]
+    python3 chip_smoke.py [--profile DIR]
 
 Run from the root of a checkout, on a machine with one NVIDIA Hopper card
 and the CUDA toolkit. It imports no jax. Phases, each of which exits
@@ -9,21 +9,35 @@ non-zero on failure:
 
 1. card and versions (``nvidia-smi`` name and power limit, torch, CUDA);
 2. build: the kernels compile from ``real_time_sdr_tpu_torch/csrc`` into
-   the git-ignored ``real_time_sdr_tpu_torch/_build/``;
+   the git-ignored ``real_time_sdr_tpu_torch/_build/`` (one ``nvcc`` per
+   source, in parallel);
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes (mode 0, 32 channels x 12 blocks): frontend demod
-   > 90 dB, every FIR-bank site > 110 dB; median device times of both;
-4. main path: a synthetic station tiled to 32 channels (distinct time
+   its path's shapes, with median device times of both: frontend demod
+   > 90 dB and every FIR-bank site > 110 dB (mode 0, 32 channels x 12
+   blocks); the channelizer epilogue byte-equal at the 64-station shape;
+   the direct-form decimating FIR > 110 dB at the audio-rail geometry,
+   beside the FIR bank at the same geometry;
+4. mode-0 path: a synthetic station tiled to 32 channels (distinct time
    shifts) through ``Receiver(0, stereo=True, rds=True, pll_tier=3,
-   device="cuda").run_segment`` over three chained 12-block segments; both
-   kernels' launch counts must rise; channel 0's PS/PI must decode and its
-   left/right channels carry their tones; channels 0-1 of the first two
-   segments must agree with the port's own CPU run (audio > 60 dB, RDS
-   bits equal from a carried state); warm segments are timed for the
-   aggregate real-time multiple.
+   device="cuda").run_segment`` over three chained 12-block segments; the
+   frontend and FIR-bank launch counts must rise; channel 0's PS/PI must
+   decode and its left/right channels carry their tones; channels 0-1 of
+   the first two segments must agree with the port's own CPU run (audio
+   > 60 dB, RDS bits equal from a carried state); warm segments are timed
+   for the aggregate real-time multiple;
+5. wideband paths: 64 stations on the 300 kHz raster in one 19.2 MS/s
+   capture (3 real stations, the other slots empty), raw u8 bytes through
+   ``ChannelBank.run_wideband_u8`` in 12-block segments, once through the
+   two-stage ``Channelizer`` (the epilogue, frontend and FIR-bank kernels
+   must launch) and once through the fused frontend (the FIR bank must
+   launch); PS/PI must decode on the 3 stations on both paths; the
+   two-stage u8 of the first 2 blocks must agree with the CPU run (within
+   1 LSB on < 1 % of bytes); warm segments are timed.
 
+Each path's kernel counts are set to 0 just before it and read just after.
 The last two lines are the kernels' JSON and the device JSON.
-``--profile PATH`` also writes a torch.profiler table of one warm segment.
+``--profile DIR`` also writes a torch.profiler table of one warm segment
+of each path to DIR.
 """
 
 from __future__ import annotations
@@ -31,6 +45,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -38,6 +53,7 @@ import time
 
 CH, BLOCKS, SEGMENTS = 32, 12, 3
 PS, PI, PTY = "H100 FM ", 0x3A5C, 5
+WB_STATIONS, WB_MULT, WB_SLOTS = 64, 8, (3, 32, 62)
 
 
 def fail(msg: str) -> None:
@@ -75,10 +91,41 @@ def band_power(np, x, fs, f, width=30.0):
     return sp[(freqs > f - width) & (freqs < f + width)].sum()
 
 
+def decode(RdsFramer, bits, nbits, c):
+    fr = RdsFramer()
+    for b in range(bits.shape[1]):
+        fr.feed(bits[c, b, :nbits[c, b]])
+    return fr.events
+
+
+def profile_segment(torch, card, path, name, run, run_ms):
+    """torch.profiler table of one warm segment -> DIR/<name>.txt; prints
+    device busy time and idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    busy_us = sum(e.self_device_time_total for e in avg
+                  if e.device_type == DeviceType.CUDA)
+    table = avg.table(sort_by="device_time_total", row_limit=40)
+    out = os.path.join(path, f"{name}.txt")
+    with open(out, "w") as f:
+        f.write(f"{card}\n{table}\n")
+    print(f"profile of one warm {name} segment -> {out}: device busy "
+          f"{busy_us / 1e3:.3f} ms of the ~{run_ms:.3f} ms run (idle share "
+          f"{1 - busy_us / 1e3 / run_ms:.2f})")
+    print("\n".join(table.splitlines()[:22]))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--profile", help="write a torch.profiler table of one "
-                    "warm segment to this file")
+    ap.add_argument("--profile", metavar="DIR",
+                    help="write a torch.profiler table of one warm segment "
+                    "of each path into this directory")
     args = ap.parse_args()
 
     import numpy as np
@@ -86,19 +133,31 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a card")
     try:
+        from real_time_sdr_tpu_torch.models.channelizer import Channelizer
         from real_time_sdr_tpu_torch.models.rds_framing import RdsFramer
         from real_time_sdr_tpu_torch.models.receiver import Receiver
+        from real_time_sdr_tpu_torch.models.wideband_frontend import (
+            FusedWidebandFrontend, make_wideband_frontend, u8_to_rails)
         from real_time_sdr_tpu_torch.ops.cuda import _build
-        from real_time_sdr_tpu_torch.ops.cuda import (KERNELS, fir_bank,
+        from real_time_sdr_tpu_torch.ops.cuda import (KERNELS, chan_epilogue,
+                                                      fir_bank, fir_decimate,
                                                       frontend_fused)
+        from real_time_sdr_tpu_torch.ops.cuda.chan_epilogue import \
+            chan_epilogue_plain
         from real_time_sdr_tpu_torch.ops.cuda.fir_bank import fir_bank_plain
+        from real_time_sdr_tpu_torch.ops.cuda.fir_kernels import \
+            fir_decimate_plain
         from real_time_sdr_tpu_torch.ops.cuda.frontend_fused import \
             frontend_plain
+        from real_time_sdr_tpu_torch.ops.fir import PolyFIR, make_bank
+        from real_time_sdr_tpu_torch.parallel.channel import ChannelBank
         from real_time_sdr_tpu_torch.utils import synth
         from real_time_sdr_tpu_torch.utils.state import map_state
     except ImportError as e:
         fail(f"the port is not importable here ({e}); run from the root "
              "of a checkout")
+    if args.profile:
+        os.makedirs(args.profile, exist_ok=True)
 
     # -- 1. card ------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -144,7 +203,7 @@ def main() -> None:
 
     # -- 3. kernels vs plain ------------------------------------------------
     rng = np.random.default_rng(1)
-    kernels = []
+    kernels = {}
     fe = rx.frontend
     xx = torch.cat([fe.init_state(CH).iq_tail,
                     torch.from_numpy(segs[0]).to(dev)], dim=-1)
@@ -168,10 +227,9 @@ def main() -> None:
     if not (fe_snr > 90.0 and prev_err < 1e-4):
         fail(f"frontend kernel disagrees with its plain version "
              f"({fe_snr:.1f} dB, prev err {prev_err:.3g})")
-    kernels.append(dict(name=frontend_fused.name, route="cuda",
-                        source=frontend_fused.source,
-                        replaces=frontend_fused.replaces, max_abs_err=fe_err,
-                        ms=fe_ms, plain_ms=fe_plain_ms))
+    kernels[frontend_fused.name] = dict(max_abs_err=fe_err, ms=fe_ms,
+                                        plain_ms=fe_plain_ms)
+    del xx, dk, dp
 
     n_if = cfg.if_block * BLOCKS
     sites = [  # (name, bank, rows, n) at the main path's shapes
@@ -206,14 +264,83 @@ def main() -> None:
         bank_err = max(bank_err, err)
         bank_ms += t_k
         bank_plain_ms += t_p
-    kernels.append(dict(name=fir_bank.name, route="cuda",
-                        source=fir_bank.source, replaces=fir_bank.replaces,
-                        max_abs_err=bank_err, ms=bank_ms,
-                        plain_ms=bank_plain_ms))
+    kernels[fir_bank.name] = dict(max_abs_err=bank_err, ms=bank_ms,
+                                  plain_ms=bank_plain_ms)
     print(f"fir_bank over the {len(sites)} sites of one segment: kernel "
           f"{bank_ms:.4f} ms, plain {bank_plain_ms:.4f} ms")
 
-    # -- 4. main path --------------------------------------------------------
+    # channelizer epilogue at the 64-station, 12-block, 19.2 MS/s shape:
+    # S = 64, R = 16, c = n_out / R frames
+    s_ch, r_n = WB_STATIONS, 16
+    n_out_wb = BLOCKS * cfg.block_size_iq                 # station rate
+    gen = torch.Generator(device=dev).manual_seed(3)
+    y = 0.5 * torch.randn((n_out_wb // r_n, r_n * 2 * s_ch), device=dev,
+                          generator=gen)
+    ang = 7.0 * torch.rand(s_ch, device=dev, generator=gen)
+    pc, ps = torch.cos(ang), torch.sin(ang)
+    uk = chan_epilogue.launch(y, pc, ps, r_n, s_ch, n_out_wb)
+    up = chan_epilogue_plain(y, pc, ps, r_n, s_ch, n_out_wb)
+    torch.cuda.synchronize()
+    epi_err = (uk.int() - up.int()).abs().max().item()
+    epi_ms = device_ms(torch, lambda: chan_epilogue.launch(
+        y, pc, ps, r_n, s_ch, n_out_wb))
+    epi_plain_ms = device_ms(torch, lambda: chan_epilogue_plain(
+        y, pc, ps, r_n, s_ch, n_out_wb))
+    moved = y.numel() * 4 + uk.numel()
+    print(f"kernel chan_epilogue: y {tuple(y.shape)} f32, R {r_n}, S {s_ch} "
+          f"-> {tuple(uk.shape)} u8: byte-equal {torch.equal(uk, up)}, max "
+          f"abs err {epi_err} LSB; kernel {epi_ms:.4f} ms "
+          f"({moved / epi_ms / 1e9:.2f} TB/s of {moved / 1e6:.1f} MB), "
+          f"plain {epi_plain_ms:.4f} ms")
+    if not torch.equal(uk, up):
+        fail("chan_epilogue kernel is not byte-equal to its plain version")
+    kernels[chan_epilogue.name] = dict(max_abs_err=float(epi_err), ms=epi_ms,
+                                       plain_ms=epi_plain_ms)
+    del y, uk, up
+
+    # direct-form decimating FIR at the audio-rail geometry (64 rails x
+    # 12 blocks of IF, K = 101, down = 5), beside the FIR bank there
+    h = rx.audio.resamp_bank.taps[0].contiguous()
+    k_taps, down = h.shape[0], 5
+    xd = torch.randn((2 * CH, k_taps - 1 + n_if), device=dev, generator=gen)
+    dk_ = fir_decimate.launch(xd, h, down)
+    dp_ = fir_decimate_plain(xd, h, down)
+    torch.cuda.synchronize()
+    fd_snr = snr_db(dp_, dk_)
+    fd_err = (dk_ - dp_).abs().max().item()
+    fd_ms = device_ms(torch, lambda: fir_decimate.launch(xd, h, down))
+    fd_plain_ms = device_ms(torch, lambda: fir_decimate_plain(xd, h, down))
+    dbank = make_bank([PolyFIR(h.double().cpu().numpy(), down=down)]).to(dev)
+    fb_ms = device_ms(torch, lambda: fir_bank.launch(xd, dbank.taps,
+                                                     dbank.geometry))
+    fb_out = fir_bank.launch(xd, dbank.taps, dbank.geometry)[:, 0]
+    print(f"kernel fir_decimate: ({2 * CH}, {xd.shape[1]}) K {k_taps} down "
+          f"{down} -> {tuple(dk_.shape)}: SNR {fd_snr:.1f} dB vs plain, max "
+          f"abs err {fd_err:.3g}; kernel {fd_ms:.4f} ms, plain (conv1d) "
+          f"{fd_plain_ms:.4f} ms; fir_bank at the same geometry "
+          f"{fb_ms:.4f} ms (max abs diff vs fir_decimate "
+          f"{(fb_out - dk_).abs().max().item():.3g})")
+    if not fd_snr > 110.0:
+        fail(f"fir_decimate disagrees with its plain version "
+             f"({fd_snr:.1f} dB)")
+    kernels[fir_decimate.name] = dict(max_abs_err=fd_err, ms=fd_ms,
+                                      plain_ms=fd_plain_ms)
+    del xd, dk_, dp_
+
+    launches = {k.name: 0 for k in KERNELS}
+    by_path = {}
+
+    def count_path(path, needed):
+        got = {k.name: k.launches for k in KERNELS}
+        by_path[path] = got
+        for name, n in got.items():
+            launches[name] += n
+        print(f"{path} launches {got}")
+        for name in needed:
+            if got[name] <= 0:
+                fail(f"kernel {name} was not launched on the {path} path")
+
+    # -- 4. mode-0 path -------------------------------------------------------
     for k in KERNELS:
         k.launches = 0
     state = rx.init_state(CH)
@@ -228,15 +355,9 @@ def main() -> None:
         seg_ms.append(a.elapsed_time(b))
         outs.append(out)
         states.append(state)
-    launches = {k.name: k.launches for k in KERNELS}
-    print(f"main path: {SEGMENTS} chained segments of {CH} ch x {BLOCKS} "
-          f"blk, {', '.join(f'{t:.2f}' for t in seg_ms)} ms (H2D included); "
-          f"launches {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-    for kd in kernels:
-        kd["launches"] = launches[kd["name"]]
+    count_path("mode0", (frontend_fused.name, fir_bank.name))
+    print(f"mode-0 path: {SEGMENTS} chained segments of {CH} ch x {BLOCKS} "
+          f"blk, {', '.join(f'{t:.2f}' for t in seg_ms)} ms (H2D included)")
 
     n_audio = cfg.audio_block * BLOCKS
     for out in outs:
@@ -252,12 +373,7 @@ def main() -> None:
     right = torch.cat([o.right for o in outs], -1).cpu().numpy()
     bits = torch.cat([o.rds_bits for o in outs], 1).cpu().numpy()
     nbits = torch.cat([o.rds_nbits for o in outs], 1).cpu().numpy()
-    decoded = []
-    for c in range(CH):
-        fr = RdsFramer()
-        for b in range(bits.shape[1]):
-            fr.feed(bits[c, b, :nbits[c, b]])
-        decoded.append(fr.events)
+    decoded = [decode(RdsFramer, bits, nbits, c) for c in range(CH)]
     ev = decoded[0]
     print(f"channel 0: PS {ev.ps_name!r}, PI {ev.pi and hex(ev.pi)}, PTY "
           f"{ev.pty!r}, groups {ev.groups_decoded}; PS decoded on "
@@ -293,7 +409,7 @@ def main() -> None:
     print(f"card vs CPU run (ch 0-1, segments 1-2): audio SNR min "
           f"{min(snrs):.1f} dB, segment-2 RDS bits equal: {same_bits}")
     if not (min(snrs) > 60.0 and same_bits):
-        fail("the card's main path disagrees with the CPU run")
+        fail("the card's mode-0 path disagrees with the CPU run")
 
     # warm timing: the chain continues over the same segments; events
     # split each segment into its H2D copy (pageable host memory) and the
@@ -310,40 +426,139 @@ def main() -> None:
         warm_ms.append(marks[0].elapsed_time(marks[2]))
         h2d_ms.append(marks[0].elapsed_time(marks[1]))
     med = statistics.median(warm_ms)
-    radio_s = CH * BLOCKS * cfg.block_size_iq / cfg.rf_fs
-    print(f"warm segment: median {med:.3f} ms over {len(warm_ms)} "
+    radio_s = BLOCKS * cfg.block_size_iq / cfg.rf_fs
+    print(f"mode-0 warm segment: median {med:.3f} ms over {len(warm_ms)} "
           f"(min {min(warm_ms):.3f}, max {max(warm_ms):.3f}), of which H2D "
           f"{statistics.median(h2d_ms):.3f} ms; aggregate "
-          f"{radio_s / (med / 1e3):.1f}x real time ({CH} ch x "
-          f"{radio_s / CH:.4f} s of radio per segment) on {card}")
+          f"{CH * radio_s / (med / 1e3):.1f}x real time ({CH} ch x "
+          f"{radio_s:.4f} s of radio per segment) on {card}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
-          "GB")
-
+          f"GB on {card}")
     if args.profile:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
         seg = torch.from_numpy(segs[0]).to(dev)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            state, _ = rx.run_segment(state, seg)
-            torch.cuda.synchronize()
-        avg = prof.key_averages()
-        busy_us = sum(e.self_device_time_total for e in avg
-                      if e.device_type == DeviceType.CUDA)
-        table = avg.table(sort_by="device_time_total", row_limit=40)
-        with open(args.profile, "w") as f:
-            f.write(f"{card}\n{table}\n")
-        run_ms = med - statistics.median(h2d_ms)
-        print(f"profile of one warm segment (H2D excluded) -> "
-              f"{args.profile}: device busy {busy_us / 1e3:.3f} ms of the "
-              f"~{run_ms:.3f} ms run (idle share "
-              f"{1 - busy_us / 1e3 / run_ms:.2f})")
-        print("\n".join(table.splitlines()[:25]))
+        profile_segment(torch, card, args.profile, "mode0",
+                        lambda: rx.run_segment(state, seg),
+                        med - statistics.median(h2d_ms))
+    del outs, states, state, segs, tiled
+
+    # -- 5. wideband paths ----------------------------------------------------
+    wide_fs = WB_MULT * cfg.rf_fs
+    offs = [int((k - (WB_STATIONS - 1) / 2) * 300_000)
+            for k in range(WB_STATIONS)]
+    stations = [dict(offset_hz=offs[k], ps_name=f"WB64-{k:03d}"[:8],
+                     pi=0x1000 + k, pty=4, tone_left=400.0 + 200 * j,
+                     tone_right=1500.0) for j, k in enumerate(WB_SLOTS)]
+    t0 = time.perf_counter()
+    iw, qw, _ = synth.wideband_iq(cfg, wide_fs, stations,
+                                  BLOCKS * SEGMENTS)
+    x = np.empty(2 * len(iw), np.float32)
+    x[0::2], x[1::2] = iw, qw
+    raw = np.clip(np.round(128.0 + 127.0 * x), 0, 255).astype(np.uint8)
+    del iw, qw, x
+    wseg = 2 * BLOCKS * cfg.block_size_iq * WB_MULT      # bytes per segment
+    wsegs = [raw[k * wseg:(k + 1) * wseg] for k in range(SEGMENTS)]
+    print(f"wideband fixture: {WB_STATIONS} stations on the 300 kHz raster "
+          f"in {wide_fs / 1e6:g} MS/s, real stations at slots "
+          f"{list(WB_SLOTS)}, {SEGMENTS} segments of {BLOCKS} blk = "
+          f"{wseg / 1e6:.1f} MB u8 each (synthesized in "
+          f"{time.perf_counter() - t0:.1f} s)")
+    wbank = ChannelBank(rx, WB_STATIONS)
+    radio_s = BLOCKS * cfg.block_size_iq / cfg.rf_fs
+
+    def run_wideband(path, fe, needed):
+        torch.cuda.reset_peak_memory_stats()
+        for k in KERNELS:
+            k.launches = 0
+        bs, fs_ = wbank.init_state(), fe.init_state()
+        bits, nbits, seg_t = [], [], []
+        for seg in wsegs:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            bs, out, fs_ = wbank.run_wideband_u8(
+                bs, fe, torch.from_numpy(seg).to(dev), fs_)
+            b.record()
+            b.synchronize()
+            seg_t.append(a.elapsed_time(b))
+            if not torch.isfinite(out.left).all():
+                fail(f"{path}: non-finite audio")
+            bits.append(out.rds_bits)
+            nbits.append(out.rds_nbits)
+        count_path(path, needed)
+        bits = torch.cat(bits, 1).cpu().numpy()
+        nbits = torch.cat(nbits, 1).cpu().numpy()
+        for st in stations:
+            k = offs.index(st["offset_hz"])
+            ev = decode(RdsFramer, bits, nbits, k)
+            print(f"{path} station {k} @ {st['offset_hz'] / 1e6:+.2f} MHz: "
+                  f"PS {ev.ps_name!r}, PI {ev.pi and hex(ev.pi)}, groups "
+                  f"{ev.groups_decoded}")
+            if ev.ps_name != st["ps_name"] or ev.pi != st["pi"]:
+                fail(f"{path}: station {k} did not decode its PS/PI")
+        warm, h2d = seg_t[1:], []
+        for k in range(8):
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            marks[0].record()
+            seg = torch.from_numpy(wsegs[k % SEGMENTS]).to(dev)
+            marks[1].record()
+            bs, _, fs_ = wbank.run_wideband_u8(bs, fe, seg, fs_)
+            marks[2].record()
+            marks[2].synchronize()
+            warm.append(marks[0].elapsed_time(marks[2]))
+            h2d.append(marks[0].elapsed_time(marks[1]))
+        med = statistics.median(warm)
+        rt = radio_s / (med / 1e3)
+        print(f"{path} wideband segment ({WB_STATIONS} st x {BLOCKS} blk, "
+              f"H2D of {wseg / 1e6:.1f} MB included): first "
+              f"{seg_t[0]:.2f} ms; warm median {med:.3f} ms over "
+              f"{len(warm)} (min {min(warm):.3f}, max {max(warm):.3f}), of "
+              f"which H2D {statistics.median(h2d):.3f} ms; "
+              f"{rt:.2f}x real time on the {wide_fs / 1e6:g} MS/s input, "
+              f"{WB_STATIONS * cfg.rf_fs * rt / 1e6:.1f} MS/s of station IQ "
+              f"decoded; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; on {card}")
+        if args.profile:
+            seg = torch.from_numpy(wsegs[0]).to(dev)
+            profile_segment(torch, card, args.profile, path,
+                            lambda: wbank.run_wideband_u8(bs, fe, seg, fs_),
+                            med - statistics.median(h2d))
+
+    ch = Channelizer(cfg, wide_fs, offs).to(dev)
+    if not (ch.fold_static and ch.fold_R == 16 and ch.fold_J == 323):
+        fail(f"unexpected channelizer geometry (static {ch.fold_static}, "
+             f"R {ch.fold_R}, J {ch.fold_J})")
+    run_wideband("two_stage", ch,
+                 (chan_epilogue.name, frontend_fused.name, fir_bank.name))
+    # card against the port's own CPU run on the first 2 blocks
+    first = torch.from_numpy(raw[:2 * 2 * cfg.block_size_iq * WB_MULT])
+    u8_card, _ = ch.call_u8(*u8_to_rails(first.to(dev)), ch.init_state())
+    ch_cpu = Channelizer(cfg, wide_fs, offs)
+    u8_cpu, _ = ch_cpu.call_u8(*u8_to_rails(first), ch_cpu.init_state())
+    diff = (u8_card.cpu().int() - u8_cpu.int()).abs()
+    frac = (diff != 0).float().mean().item()
+    print(f"two_stage u8 card vs CPU run (2 blocks, {tuple(u8_cpu.shape)}): "
+          f"max diff {diff.max().item()} LSB on {frac:.2e} of bytes")
+    if not (diff.max().item() <= 1 and frac < 0.01):
+        fail("the card's channelizer disagrees with the CPU run")
+    del ch, ch_cpu, u8_card, u8_cpu, diff
+
+    wf = make_wideband_frontend(cfg, wide_fs, offs).to(dev)
+    if not isinstance(wf, FusedWidebandFrontend):
+        fail("make_wideband_frontend did not pick the fused frontend")
+    print(f"fused frontend: lo {wf.lo}, R {wf.r_n}, J {wf.j_w}, weights "
+          f"{tuple(wf.w.shape)}")
+    run_wideband("fused", wf, (fir_bank.name,))
 
     if "jax" in sys.modules:
         fail("jax was imported")
-    print(json.dumps({"kernels": kernels}))
+    rows = []
+    for k in KERNELS:
+        rows.append(dict(name=k.name, route="cuda", source=k.source,
+                         replaces=k.replaces, launches=launches[k.name],
+                         launches_by_path={p: v[k.name]
+                                           for p, v in by_path.items()},
+                         **kernels[k.name]))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

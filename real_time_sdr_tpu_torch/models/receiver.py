@@ -91,6 +91,10 @@ class Receiver(nn.Module):
             raise ValueError(f"segment length {iq_u8.shape[-1]} is not a "
                              f"whole number of {blk}-byte blocks")
         demod, f_state = self.frontend(iq_u8, state.frontend)
+        return self._post_frontend(demod, f_state, state)
+
+    def _post_frontend(self, demod: torch.Tensor, f_state,
+                       state: ReceiverState):
         shared = band_pre = None
         if self.if_bank is not None:
             (pilot, band_s, band_r), if_tail = self.if_bank(
@@ -122,3 +126,18 @@ class Receiver(nn.Module):
         Wideband stages run over the whole segment; the narrowband RDS
         tail keeps exact per-block semantics."""
         return self.step(state, iq_segment)
+
+    @torch.no_grad()
+    def run_segment_demod(self, state: ReceiverState, demod: torch.Tensor):
+        """Post-frontend entry: ``demod`` (C, nb*if_block) float32 is the
+        FM-discriminated IF signal computed elsewhere (the fused wideband
+        frontend emits it from one wide-rate matmul). Runs the audio and
+        RDS chains as ``run_segment`` does after its frontend;
+        ``state.frontend`` passes through untouched."""
+        if demod.ndim != 2 or demod.dtype != torch.float32:
+            raise ValueError(f"demod must be (C, n) float32, got "
+                             f"{demod.dtype} {tuple(demod.shape)}")
+        if demod.shape[-1] % self.cfg.if_block:
+            raise ValueError(f"demod length {demod.shape[-1]} is not a whole "
+                             f"number of {self.cfg.if_block}-sample blocks")
+        return self._post_frontend(demod, state.frontend, state)

@@ -5,9 +5,12 @@ Importing this package builds nothing: ``_build.library()`` compiles the
 sources on the first launch.
 """
 
+from real_time_sdr_tpu_torch.ops.cuda.chan_epilogue import chan_epilogue
 from real_time_sdr_tpu_torch.ops.cuda.fir_bank import fir_bank
+from real_time_sdr_tpu_torch.ops.cuda.fir_kernels import fir_decimate
 from real_time_sdr_tpu_torch.ops.cuda.frontend_fused import frontend_fused
 
-KERNELS = (frontend_fused, fir_bank)
+KERNELS = (frontend_fused, fir_bank, chan_epilogue, fir_decimate)
 
-__all__ = ["KERNELS", "fir_bank", "frontend_fused"]
+__all__ = ["KERNELS", "chan_epilogue", "fir_bank", "fir_decimate",
+           "frontend_fused"]

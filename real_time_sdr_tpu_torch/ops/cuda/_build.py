@@ -30,16 +30,25 @@ BUILD_DIR = _PKG / "_build"
 # sm_90a keeps the Hopper-only instructions (wgmma, setmaxnreg) open to later
 # kernels; -Xptxas -v writes each kernel's registers/shared memory/spills to
 # the build log beside the library.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH, "-shared")
+NVCC_FLAGS = COMPILE_FLAGS + LINK_FLAGS
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # xx, taps, y, B, L, nf, K, up, down, T, n_out, stream
     "sdr_fir_bank": ([_P, _P, _P] + [_I] * 8 + [_P], ctypes.c_int),
     # xx, taps, prev_i, prev_q, demod, last_i, last_q, C, L, K, down,
     # n_out, stream
     "sdr_frontend_fused": ([_P] * 7 + [_I] * 5 + [_P], ctypes.c_int),
+    # y, pc, ps, out, S, n_out, vec, stream
+    "sdr_chan_epilogue": ([_P] * 4 + [_I, _LL, _I, _P], ctypes.c_int),
+    # xx, h, y, C, L, K, down, n_out, stream
+    "sdr_fir_decimate": ([_P] * 3 + [_I] * 5 + [_P], ctypes.c_int),
+    # K, down -> shared-memory bytes of one fir_decimate block
+    "sdr_fir_decimate_smem": ([_I, _I], ctypes.c_int),
     "sdr_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -69,25 +78,43 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile the kernels unless a library for the current sources exists;
-    returns its path. The compiler's output is kept in ``<lib>.log``."""
+    returns its path. Each source compiles in its own ``nvcc`` process, all
+    started together, then one ``nvcc`` links the objects. The compilers'
+    output is kept in ``<lib>.log``."""
     out = BUILD_DIR / f"libsdr_kernels_{_digest()}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    try:
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs, procs = [], []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = str(Path(tmpdir) / f"{src.stem}.o")
+            cmd = [nvcc, *COMPILE_FLAGS, "-I", str(CSRC), "-c", "-o", obj,
+                   str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs = []
+        for cmd, proc in procs:
+            text = proc.communicate()[0]
+            if proc.returncode != 0:
+                for _, other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{text}")
+            logs.append(text)
+        tmp = str(Path(tmpdir) / out.name)
+        cmd = [nvcc, *LINK_FLAGS, "-o", tmp, *objs]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                                f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        out.with_suffix(".log").write_text(res.stdout + res.stderr)
+        out.with_suffix(".log").write_text("".join(logs) + res.stdout
+                                           + res.stderr)
         os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return out
 
 

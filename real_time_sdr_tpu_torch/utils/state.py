@@ -1,10 +1,12 @@
 """Carried state across the two packages: numpy <-> the port's tensors.
 
 The port's state classes carry the JAX package's class names, field names,
-shapes and dtypes, with a leading channel axis on every leaf (what a
-vmapped JAX run or ``ChannelBank`` carries). So a JAX ``ReceiverState``
-fetched to numpy (``jax.tree_util.tree_map(np.asarray, state)``) converts
-field by field:
+shapes and dtypes. Receiver states have a leading channel axis on every
+leaf (what a vmapped JAX run or ``ChannelBank`` carries); the wideband
+frontends' states (``ChannelizerState``, ``FusedWidebandState``) have none:
+their rail tails are shared by all stations and ``pos`` is a 0-d int32. So
+a JAX state fetched to numpy (``jax.tree_util.tree_map(np.asarray,
+state)``) converts field by field:
 
     state = state_from_numpy(jax_state_np, device="cuda")
     ...
@@ -17,9 +19,12 @@ import numpy as np
 import torch
 
 from real_time_sdr_tpu_torch.models.audio import MonoState, StereoState
+from real_time_sdr_tpu_torch.models.channelizer import ChannelizerState
 from real_time_sdr_tpu_torch.models.frontend import FrontendState
 from real_time_sdr_tpu_torch.models.rds import RdsState
 from real_time_sdr_tpu_torch.models.receiver import ReceiverState
+from real_time_sdr_tpu_torch.models.wideband_frontend import \
+    FusedWidebandState
 from real_time_sdr_tpu_torch.ops.rds_bits import BitSyncState
 from real_time_sdr_tpu_torch.ops.sync import FFSyncCarry
 
@@ -27,7 +32,7 @@ __all__ = ["map_state", "state_from_numpy", "state_to_numpy"]
 
 _CLASSES = {cls.__name__: cls for cls in (
     ReceiverState, FrontendState, MonoState, StereoState, RdsState,
-    FFSyncCarry, BitSyncState)}
+    FFSyncCarry, BitSyncState, ChannelizerState, FusedWidebandState)}
 
 
 def map_state(tree, leaf_fn):

@@ -1,6 +1,6 @@
-"""Synthetic FM broadcast station (test fixture and benchmark input).
+"""Synthetic FM broadcast stations (test fixture and benchmark input).
 
-A jax-free copy of the ``station_iq`` path of
+A jax-free copy of the ``station_iq`` and ``wideband_iq`` paths of
 ``real_time_sdr_tpu/utils/synth.py``: mono + 19 kHz pilot + DSB-SC stereo
 difference + 57 kHz RDS BPSK with real RBDS framing, FM modulated into
 uint8 interleaved IQ as an RTL-SDR delivers it. The transmit chain is the
@@ -8,7 +8,9 @@ inverse of the receive chain: groups -> CRC+offset checkwords ->
 differential encode -> Manchester symbols -> RRC pulse shaping at
 sps*2375 S/s -> resample to the RF rate -> mix to 57 kHz. For the same
 arguments it returns the same bytes as the JAX package's copy
-(``tests/test_torch_receiver.py``).
+(``tests/test_torch_receiver.py``, ``tests/test_torch_wideband.py``).
+``wideband_iq`` upsamples and frequency-shifts several stations into one
+wideband capture for the channelizer.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from real_time_sdr_tpu_torch.ops.rds_codes import _crc_remainder
 __all__ = ["encode_group", "group_to_bits", "ps_groups", "radiotext_groups",
            "radiotext_2b_groups", "ptyn_groups", "date_to_mjd",
            "clocktime_group", "differential_encode", "manchester_symbols",
-           "rds_baseband", "fm_iq", "station_iq"]
+           "rds_baseband", "fm_iq", "station_iq", "wideband_iq"]
 
 # ---------------------------------------------------------------------------
 # RBDS transmit-side encoding
@@ -276,3 +278,39 @@ def station_iq(cfg: ReceiverConfig, n_blocks: int, *,
     truth = dict(ps_name=ps_name, pi=pi, pty=pty, left=left, right=right,
                  bits=bits, radiotext=radiotext, ptyn=ptyn, clock=clock)
     return iq, truth
+
+
+def wideband_iq(cfg: ReceiverConfig, wide_fs: int, stations: list[dict],
+                n_blocks: int) -> tuple[np.ndarray, np.ndarray, list[dict]]:
+    """Multi-station wideband capture for the channelizer.
+
+    Each stations[k] dict carries offset_hz (required), an ``amp`` linear
+    amplitude scale (default 1.0; amp=10 is a +20 dB interferer), plus any
+    station_iq kwargs (ps_name, pi, pty, tone_left, tone_right). Returns
+    (i_wide, q_wide float32 at wide_fs, truths). Stations are synthesized at
+    cfg.rf_fs, upsampled to wide_fs, and frequency-shifted to their
+    offsets; the sum is scaled down by the total amplitude when it exceeds
+    1.
+    """
+    if wide_fs % cfg.rf_fs:
+        raise ValueError(f"wide_fs {wide_fs} is not a multiple of the "
+                         f"station rate {cfg.rf_fs}")
+    up = wide_fs // cfg.rf_fs
+    n_wide = cfg.block_size_iq * n_blocks * up
+    acc = np.zeros(n_wide, dtype=np.complex128)
+    truths = []
+    total_amp = sum(float(st.get("amp", 1.0)) for st in stations)
+    for st in stations:
+        kw = {k: v for k, v in st.items() if k not in ("offset_hz", "amp")}
+        iq_u8, truth = station_iq(cfg, n_blocks, **kw)
+        truth["offset_hz"] = st["offset_hz"]
+        truths.append(truth)
+        z = ((iq_u8[0::2].astype(np.float64) - 128.0)
+             + 1j * (iq_u8[1::2].astype(np.float64) - 128.0)) / 128.0
+        zw = sp_signal.resample_poly(z, up, 1)[:n_wide]
+        t = np.arange(len(zw)) / wide_fs
+        acc[:len(zw)] += (float(st.get("amp", 1.0)) * zw
+                          * np.exp(2j * np.pi * st["offset_hz"] * t))
+    acc /= max(1.0, total_amp)
+    return (acc.real.astype(np.float32), acc.imag.astype(np.float32),
+            truths)

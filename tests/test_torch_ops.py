@@ -5,7 +5,11 @@ the port's kernel wrappers run their plain versions; the JAX side runs both
 its XLA path and its Pallas kernel in interpret mode, as the JAX package's
 own tests do. Bounds: every FIR bank > 110 dB (per-op LTI parity, f32 vs
 f32 in another summation order), the frontend > 65 dB (the JAX package's
-interchange bound: its CPU frontend uses bf16 hi+lo split taps).
+interchange bound: its CPU frontend uses bf16 hi+lo split taps), the
+channelizer epilogue byte-exact against the NumPy reference and within
+1 LSB on < 1 % of bytes against the Pallas kernel (the JAX package's bound:
+its kernel's rotation may contract to FMA), the direct-form decimating
+FIR > 110 dB.
 """
 
 import jax.numpy as jnp
@@ -19,6 +23,9 @@ from real_time_sdr_tpu.models.frontend import Frontend as JFrontend
 from real_time_sdr_tpu.ops import filters
 from real_time_sdr_tpu.ops import fir as jfir
 from real_time_sdr_tpu.ops.demod import fm_demod as j_fm_demod
+from real_time_sdr_tpu.ops.pallas import chan_epilogue as jepi
+from real_time_sdr_tpu.ops.pallas.fir_kernels import \
+    fir_decimate_planes as j_fir_decimate_planes
 from real_time_sdr_tpu.ops.pallas.frontend_fused import FusedFrontendFIR
 from real_time_sdr_tpu.ops.pallas.polyfir import FramedFIRBank
 from real_time_sdr_tpu.ops.pll import PllParams as JPllParams
@@ -27,7 +34,11 @@ from real_time_sdr_tpu.utils import audio as jaudio
 from real_time_sdr_tpu.utils import synth as jsynth
 from real_time_sdr_tpu_torch.models.frontend import Frontend
 from real_time_sdr_tpu_torch.ops import fir as tfir
-from real_time_sdr_tpu_torch.ops.cuda import fir_bank, frontend_fused
+from real_time_sdr_tpu_torch.ops.cuda import (chan_epilogue, fir_bank,
+                                              fir_decimate, frontend_fused)
+from real_time_sdr_tpu_torch.ops.cuda.chan_epilogue import chan_epilogue_plain
+from real_time_sdr_tpu_torch.ops.cuda.fir_kernels import (fir_decimate_planes,
+                                                          fir_decimate_plain)
 from real_time_sdr_tpu_torch.ops.cuda.frontend_fused import frontend_plain
 from real_time_sdr_tpu_torch.ops.demod import fm_demod
 from real_time_sdr_tpu_torch.utils import audio as taudio
@@ -220,3 +231,99 @@ def test_pcm_matches_jax(kind):
                                 torch.from_numpy(x[:, 1]))
     assert got.dtype == torch.int16
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def _epilogue_case(s_ch, r_n, c, seed=7):
+    rng = np.random.default_rng(seed)
+    y = rng.standard_normal((c, r_n * 2 * s_ch)).astype(np.float32)
+    pc = np.cos(rng.uniform(0, 7, s_ch)).astype(np.float32)
+    ps = np.sin(rng.uniform(0, 7, s_ch)).astype(np.float32)
+    return y, pc, ps
+
+
+@pytest.mark.parametrize("s_ch, r_n, c, short", [(64, 16, 512, 37),
+                                                  (5, 3, 40, 2),
+                                                  (5, 3, 40, 0)])
+def test_chan_epilogue_plain_matches_reference(s_ch, r_n, c, short):
+    """The plain epilogue (and the wrapper on CPU tensors) is byte-exact
+    against the JAX package's NumPy reference, at the 64-station geometry
+    and at an odd one the TPU kernel could not take."""
+    y, pc, ps = _epilogue_case(s_ch, r_n, c)
+    n_out = c * r_n - short
+    ref = jepi.reference_u8(y, pc, ps, r_n, s_ch, n_out)
+    args = (torch.from_numpy(y), torch.from_numpy(pc), torch.from_numpy(ps),
+            r_n, s_ch, n_out)
+    got = chan_epilogue_plain(*args)
+    assert got.dtype == torch.uint8 and got.shape == (s_ch, 2 * n_out)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(chan_epilogue(*args).numpy(), ref)
+
+
+def test_chan_epilogue_plain_matches_pallas():
+    """Against the Pallas kernel in interpret mode (64 stations, R = 16,
+    512 frames, a partial last frame): within 1 LSB on < 1 % of bytes."""
+    s_ch, r_n, c = 64, 16, 512
+    y, pc, ps = _epilogue_case(s_ch, r_n, c)
+    n_out = c * r_n - 37
+    ref = np.asarray(jepi.fold_epilogue_u8(
+        jnp.asarray(y), jnp.asarray(pc), jnp.asarray(ps), r_n, s_ch, n_out,
+        interpret=True)).astype(np.int32)
+    got = chan_epilogue_plain(torch.from_numpy(y), torch.from_numpy(pc),
+                              torch.from_numpy(ps), r_n, s_ch,
+                              n_out).numpy().astype(np.int32)
+    diff = np.abs(got - ref)
+    assert diff.max() <= 1, diff.max()
+    assert (diff != 0).mean() < 0.01, (diff != 0).mean()
+
+
+def test_chan_epilogue_rejects_bad_shapes():
+    y, pc, ps = (torch.from_numpy(a) for a in _epilogue_case(4, 2, 8))
+    with pytest.raises(ValueError):
+        chan_epilogue(y, pc, ps, 3, 4, 10)          # y is not (c, R*2S)
+    with pytest.raises(ValueError):
+        chan_epilogue(y, pc, ps, 2, 4, 17)          # n_out > c*R
+    with pytest.raises(TypeError):
+        chan_epilogue(y.double(), pc, ps, 2, 4, 10)
+
+
+@pytest.mark.parametrize("down", [2, 5, 10])
+def test_fir_decimate_plain_matches_pallas(down):
+    """K = 101, C = 8, tail-prefixed rows: > 110 dB against the Pallas
+    kernel in interpret mode, with the taps as a tuple or a tensor."""
+    k_taps, c, n = 101, 8, 2000
+    h = filters.design_lpf(FS_IF, 16_000, k_taps)
+    rng = np.random.default_rng(down)
+    xx = rng.standard_normal((c, k_taps - 1 + n)).astype(np.float32)
+    ref = np.asarray(j_fir_decimate_planes(
+        jnp.asarray(xx), tuple(float(t) for t in h), down, interpret=True))
+    got = fir_decimate_planes(torch.from_numpy(xx), tuple(h), down)
+    assert got.shape == ref.shape == (c, n // down)
+    assert _snr(ref, got) > 110.0, _snr(ref, got)
+    plain = fir_decimate_plain(torch.from_numpy(xx),
+                               torch.tensor(h, dtype=torch.float32), down)
+    torch.testing.assert_close(plain, got, rtol=0, atol=0)
+
+
+def test_fir_decimate_rejects_non_dividing_geometry():
+    h = tuple(filters.design_lpf(FS_IF, 16_000, 101))
+    with pytest.raises(ValueError):                 # down does not divide N
+        fir_decimate_planes(torch.zeros(2, 100 + 999), h, 5)
+    with pytest.raises(ValueError):                 # ... nor K-1
+        fir_decimate_planes(torch.zeros(2, 100 + 1000), h, 3)
+    with pytest.raises(TypeError):
+        fir_decimate_planes(torch.zeros(2, 1100, dtype=torch.float64), h, 5)
+
+
+def test_new_wrappers_route_by_device():
+    """CPU tensors take the plain versions without counting a launch; any
+    device but CPU or CUDA raises."""
+    before = (chan_epilogue.launches, fir_decimate.launches)
+    y, pc, ps = (torch.from_numpy(a) for a in _epilogue_case(4, 2, 8))
+    chan_epilogue(y, pc, ps, 2, 4, 16)
+    fir_decimate(torch.zeros(2, 100 + 500), [1.0] * 101, 5)
+    assert (chan_epilogue.launches, fir_decimate.launches) == before
+    m = lambda t: t.to("meta")
+    with pytest.raises(ValueError):
+        chan_epilogue(m(y), m(pc), m(ps), 2, 4, 16)
+    with pytest.raises(ValueError):
+        fir_decimate(torch.empty((2, 600), device="meta"), [1.0] * 101, 5)

@@ -208,19 +208,39 @@ def test_framer_copy_events_identical(slice_run):
 
 
 def test_port_runs_without_jax():
-    """Importing the port and running a CPU run_segment loads no jax (a
-    subprocess: this test process already imported jax)."""
+    """Importing the port and running a CPU run_segment, and one wideband
+    segment through both wideband frontends and the channel bank, loads no
+    jax (a subprocess: this test process already imported jax)."""
     code = textwrap.dedent("""
         import sys
         import torch
         from real_time_sdr_tpu_torch.models.receiver import Receiver
         from real_time_sdr_tpu_torch.models.rds_framing import RdsFramer
+        from real_time_sdr_tpu_torch.models.channelizer import Channelizer
+        from real_time_sdr_tpu_torch.models.wideband_frontend import (
+            make_wideband_frontend)
+        from real_time_sdr_tpu_torch.parallel.channel import ChannelBank
         from real_time_sdr_tpu_torch.utils import state, synth, audio
         rx = Receiver(0, stereo=True, rds=True, pll_tier=3)
         iq, _ = synth.station_iq(rx.cfg, 2)
         st, out = rx.run_segment(rx.init_state(1),
                                  torch.from_numpy(iq)[None])
         assert out.left.shape == (1, 2 * rx.cfg.audio_block)
+        wide_fs, offs = 4 * rx.cfg.rf_fs, [-300_000, 600_000]
+        iw, qw, _ = synth.wideband_iq(rx.cfg, wide_fs, [
+            dict(offset_hz=f) for f in offs], 1)
+        raw = torch.from_numpy(synth.fm_iq(wide_fs, len(iw)))
+        bank = ChannelBank(rx, 2)
+        for fe in (make_wideband_frontend(rx.cfg, wide_fs, offs),
+                   Channelizer(rx.cfg, wide_fs, offs)):
+            _, out, fst = bank.run_wideband(
+                bank.init_state(), fe, torch.from_numpy(iw),
+                torch.from_numpy(qw), fe.init_state())
+            assert out.left.shape == (2, rx.cfg.audio_block)
+            _, out, _ = bank.run_wideband_u8(bank.init_state(), fe, raw,
+                                             fst)
+            assert out.left.shape == (2, rx.cfg.audio_block)
+            state.state_from_numpy(state.state_to_numpy(fst))
         assert "jax" not in sys.modules, sorted(
             m for m in sys.modules if m.startswith("jax"))
         print("ok")
