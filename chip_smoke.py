@@ -14,13 +14,16 @@ non-zero on failure:
 3. kernels: each kernel against its plain PyTorch version on the card at
    its path's shapes, with median device times of both: frontend demod
    > 90 dB and every FIR-bank site > 110 dB (mode 0, 32 channels x 12
-   blocks); the channelizer epilogue byte-equal at the 64-station shape;
+   blocks; each site prints the kernel body its geometry takes, tiled at
+   up = down = 1 and general otherwise, its useful GFLOP and TFLOP/s);
+   the channelizer epilogue byte-equal at the 64-station shape;
    the direct-form decimating FIR > 110 dB at the audio-rail geometry,
    beside the FIR bank at the same geometry;
 4. mode-0 path: a synthetic station tiled to 32 channels (distinct time
    shifts) through ``Receiver(0, stereo=True, rds=True, pll_tier=3,
    device="cuda").run_segment`` over three chained 12-block segments; the
-   frontend and FIR-bank launch counts must rise; channel 0's PS/PI must
+   frontend and FIR-bank launch counts must rise, through both FIR-bank
+   bodies; channel 0's PS/PI must
    decode and its left/right channels carry their tones; channels 0-1 of
    the first two segments must agree with the port's own CPU run (audio
    > 60 dB, RDS bits equal from a carried state); warm segments are timed
@@ -29,15 +32,16 @@ non-zero on failure:
    capture (3 real stations, the other slots empty), raw u8 bytes through
    ``ChannelBank.run_wideband_u8`` in 12-block segments, once through the
    two-stage ``Channelizer`` (the epilogue, frontend and FIR-bank kernels
-   must launch) and once through the fused frontend (the FIR bank must
-   launch); PS/PI must decode on the 3 stations on both paths; the
+   must launch, the FIR bank's tiled body among them) and once through the
+   fused frontend (the FIR bank's tiled body must launch); PS/PI must
+   decode on the 3 stations on both paths; the
    two-stage u8 of the first 2 blocks must agree with the CPU run (within
    1 LSB on < 1 % of bytes); warm segments are timed.
 
 Each path's kernel counts are set to 0 just before it and read just after.
 The last two lines are the kernels' JSON and the device JSON.
 ``--profile DIR`` also writes a torch.profiler table of one warm segment
-of each path to DIR.
+of each path to DIR and prints the segment's FIR-bank device time.
 """
 
 from __future__ import annotations
@@ -111,13 +115,20 @@ def profile_segment(torch, card, path, name, run, run_ms):
     avg = prof.key_averages()
     busy_us = sum(e.self_device_time_total for e in avg
                   if e.device_type == DeviceType.CUDA)
+    fir_us = {body: sum(e.self_device_time_total for e in avg
+                        if e.device_type == DeviceType.CUDA
+                        and f"fir_bank_{body}" in e.key)
+              for body in ("tiled", "general")}
     table = avg.table(sort_by="device_time_total", row_limit=40)
     out = os.path.join(path, f"{name}.txt")
     with open(out, "w") as f:
         f.write(f"{card}\n{table}\n")
     print(f"profile of one warm {name} segment -> {out}: device busy "
           f"{busy_us / 1e3:.3f} ms of the ~{run_ms:.3f} ms run (idle share "
-          f"{1 - busy_us / 1e3 / run_ms:.2f})")
+          f"{1 - busy_us / 1e3 / run_ms:.2f}); FIR-bank kernels "
+          f"{sum(fir_us.values()) / 1e3:.3f} ms (tiled "
+          f"{fir_us['tiled'] / 1e3:.3f}, general "
+          f"{fir_us['general'] / 1e3:.3f})")
     print("\n".join(table.splitlines()[:22]))
 
 
@@ -144,7 +155,8 @@ def main() -> None:
                                                       frontend_fused)
         from real_time_sdr_tpu_torch.ops.cuda.chan_epilogue import \
             chan_epilogue_plain
-        from real_time_sdr_tpu_torch.ops.cuda.fir_bank import fir_bank_plain
+        from real_time_sdr_tpu_torch.ops.cuda.fir_bank import (
+            fir_bank_plain, kernel_body)
         from real_time_sdr_tpu_torch.ops.cuda.fir_kernels import \
             fir_decimate_plain
         from real_time_sdr_tpu_torch.ops.cuda.frontend_fused import \
@@ -242,7 +254,7 @@ def main() -> None:
          cfg.if_block),
         ("rrc", rx.rds_path.rrc_bank, CH * BLOCKS, cfg.rds_block),
     ]
-    bank_err, bank_ms, bank_plain_ms = 0.0, 0.0, 0.0
+    bank_err, bank_ms, bank_plain_ms, bank_sites = 0.0, 0.0, 0.0, {}
     for name, bank, rows, n in sites:
         xb = torch.from_numpy(rng.standard_normal(
             (rows, bank.tail_len + n)).astype(np.float32)).to(dev)
@@ -254,20 +266,29 @@ def main() -> None:
         err = (yk - yp).abs().max().item()
         t_k = device_ms(torch, lambda: fir_bank.launch(xb, bank.taps, g))
         t_p = device_ms(torch, lambda: fir_bank_plain(xb, bank.w, g))
+        body = kernel_body(g)
+        gflop = 2 * rows * yk.shape[-1] * bank.nf * g.T / 1e9   # useful
         print(f"kernel fir_bank[{name}]: rows {rows}, n {n}, nf {bank.nf}, "
               f"K {g.num_taps}, {g.up}/{g.down} -> {tuple(yk.shape)}: "
-              f"SNR {s:.1f} dB, max abs err {err:.3g}; kernel {t_k:.4f} ms, "
-              f"plain {t_p:.4f} ms")
+              f"SNR {s:.1f} dB, max abs err {err:.3g}; body {body}, "
+              f"{gflop:.4f} GFLOP useful; kernel {t_k:.4f} ms "
+              f"({gflop / t_k:.2f} TFLOP/s), plain {t_p:.4f} ms "
+              f"({gflop / t_p:.2f} TFLOP/s)")
         if not s > 110.0:
             fail(f"fir_bank[{name}] disagrees with its plain version "
                  f"({s:.1f} dB)")
         bank_err = max(bank_err, err)
         bank_ms += t_k
         bank_plain_ms += t_p
+        bank_sites[name] = dict(ms=t_k, plain_ms=t_p, body=body)
     kernels[fir_bank.name] = dict(max_abs_err=bank_err, ms=bank_ms,
-                                  plain_ms=bank_plain_ms)
+                                  plain_ms=bank_plain_ms, sites=bank_sites)
+    tiled = [v for v in bank_sites.values() if v["body"] == "tiled"]
     print(f"fir_bank over the {len(sites)} sites of one segment: kernel "
-          f"{bank_ms:.4f} ms, plain {bank_plain_ms:.4f} ms")
+          f"{bank_ms:.4f} ms, plain {bank_plain_ms:.4f} ms; the "
+          f"{len(tiled)} tiled sites: kernel "
+          f"{sum(v['ms'] for v in tiled):.4f} ms, plain "
+          f"{sum(v['plain_ms'] for v in tiled):.4f} ms")
 
     # channelizer epilogue at the 64-station, 12-block, 19.2 MS/s shape:
     # S = 64, R = 16, c = n_out / R frames
@@ -328,21 +349,31 @@ def main() -> None:
     del xd, dk_, dp_
 
     launches = {k.name: 0 for k in KERNELS}
-    by_path = {}
+    by_path, bodies_by_path = {}, {}
 
-    def count_path(path, needed):
+    def reset_counts():
+        for k in KERNELS:
+            k.launches = 0
+        fir_bank.body_launches = dict.fromkeys(fir_bank.body_launches, 0)
+
+    def count_path(path, needed, bodies):
         got = {k.name: k.launches for k in KERNELS}
         by_path[path] = got
+        bodies_by_path[path] = dict(fir_bank.body_launches)
         for name, n in got.items():
             launches[name] += n
-        print(f"{path} launches {got}")
+        print(f"{path} launches {got}, fir_bank bodies "
+              f"{bodies_by_path[path]}")
         for name in needed:
             if got[name] <= 0:
                 fail(f"kernel {name} was not launched on the {path} path")
+        for body in bodies:
+            if bodies_by_path[path][body] <= 0:
+                fail(f"fir_bank's {body} body was not launched on the "
+                     f"{path} path")
 
     # -- 4. mode-0 path -------------------------------------------------------
-    for k in KERNELS:
-        k.launches = 0
+    reset_counts()
     state = rx.init_state(CH)
     outs, states, seg_ms = [], [], []
     for seg in segs:
@@ -355,7 +386,8 @@ def main() -> None:
         seg_ms.append(a.elapsed_time(b))
         outs.append(out)
         states.append(state)
-    count_path("mode0", (frontend_fused.name, fir_bank.name))
+    count_path("mode0", (frontend_fused.name, fir_bank.name),
+               ("tiled", "general"))
     print(f"mode-0 path: {SEGMENTS} chained segments of {CH} ch x {BLOCKS} "
           f"blk, {', '.join(f'{t:.2f}' for t in seg_ms)} ms (H2D included)")
 
@@ -467,8 +499,7 @@ def main() -> None:
 
     def run_wideband(path, fe, needed):
         torch.cuda.reset_peak_memory_stats()
-        for k in KERNELS:
-            k.launches = 0
+        reset_counts()
         bs, fs_ = wbank.init_state(), fe.init_state()
         bits, nbits, seg_t = [], [], []
         for seg in wsegs:
@@ -484,7 +515,7 @@ def main() -> None:
                 fail(f"{path}: non-finite audio")
             bits.append(out.rds_bits)
             nbits.append(out.rds_nbits)
-        count_path(path, needed)
+        count_path(path, needed, ("tiled",))
         bits = torch.cat(bits, 1).cpu().numpy()
         nbits = torch.cat(nbits, 1).cpu().numpy()
         for st in stations:
@@ -551,6 +582,7 @@ def main() -> None:
 
     if "jax" in sys.modules:
         fail("jax was imported")
+    kernels[fir_bank.name]["body_launches_by_path"] = bodies_by_path
     rows = []
     for k in KERNELS:
         rows.append(dict(name=k.name, route="cuda", source=k.source,

@@ -8,7 +8,9 @@ audio rails, per-block RDS batches.
 - On a CPU tensor it runs ``fir_bank_plain``: the framed matmul on the
   PolyFIR plan (frames of the input against the zero-padded polyphase
   weight matrix ``w``), the arithmetic of ``real_time_sdr_tpu.ops.fir``.
-- On a CUDA tensor it launches the kernel, or raises.
+- On a CUDA tensor it launches the kernel, or raises. The geometry alone
+  picks the kernel's body (``kernel_body``): the register-tiled direct form
+  at up == down == 1, the general polyphase form otherwise.
 """
 
 from __future__ import annotations
@@ -20,9 +22,11 @@ import torch
 from real_time_sdr_tpu_torch.device import kernel_route
 from real_time_sdr_tpu_torch.ops.cuda._build import check, library, stream_ptr
 
-__all__ = ["BankGeometry", "fir_bank", "fir_bank_plain", "FirBankKernel"]
+__all__ = ["BankGeometry", "fir_bank", "fir_bank_plain", "FirBankKernel",
+           "kernel_body"]
 
 MAX_NF = 4  # filters per launch (csrc/fir_bank.cu instantiates 1..4)
+TILED_TILE = 1152  # outputs per block of the tiled body (kTiledTile)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,8 +74,15 @@ def fir_bank_plain(xx: torch.Tensor, w: torch.Tensor,
     return y.reshape(B, nf, c_frames * R)[..., :n_out]
 
 
+def kernel_body(geom: BankGeometry) -> str:
+    """The body of ``csrc/fir_bank.cu`` that runs a geometry; its
+    ``launch`` dispatches on the same rule."""
+    return "tiled" if geom.up == 1 and geom.down == 1 else "general"
+
+
 class FirBankKernel:
-    """Launch wrapper of ``sdr_fir_bank`` with its launch count."""
+    """Launch wrapper of ``sdr_fir_bank`` with its launch count, in total
+    and per kernel body."""
 
     name = "fir_bank"
     source = "real_time_sdr_tpu_torch/csrc/fir_bank.cu"
@@ -79,6 +90,7 @@ class FirBankKernel:
 
     def __init__(self):
         self.launches = 0
+        self.body_launches = {"tiled": 0, "general": 0}
 
     def __call__(self, xx: torch.Tensor, taps: torch.Tensor,
                  w: torch.Tensor, geom: BankGeometry) -> torch.Tensor:
@@ -108,9 +120,8 @@ class FirBankKernel:
                              f"(K={geom.num_taps}, 1 <= nf <= {MAX_NF})")
         B, L = xx.shape
         T = geom.T
-        if L < T or B > 65535:
-            raise ValueError(f"fir_bank rows (B={B}, L={L}) need L >= T={T} "
-                             "and B <= 65535")
+        if L < T:
+            raise ValueError(f"fir_bank rows (B={B}, L={L}) need L >= T={T}")
         n_out = geom.n_out(L - (T - 1))
         y = torch.empty((B, nf, n_out), dtype=torch.float32, device=xx.device)
         if B == 0 or n_out == 0:
@@ -123,6 +134,7 @@ class FirBankKernel:
                                    stream_ptr(xx.device))
         check(err, "sdr_fir_bank")
         self.launches += 1
+        self.body_launches[kernel_body(geom)] += 1
         return y
 
 

@@ -7,12 +7,14 @@ conftest (which imports jax):
     python -m pytest --noconftest -q tests/test_torch_cuda.py -m cuda
 
 Bounds: frontend demod > 90 dB (the JAX package's streaming bound), FIR
-bank > 110 dB at every site of the mode-0 slice, the channelizer epilogue
-byte-equal (it rounds every product and sum as torch eager does), the
-direct-form decimating FIR > 110 dB, and the receiver on the card against
-its own CPU run: audio > 60 dB, RDS bits equal. The two-stage wideband
-path's u8 station streams agree with the CPU run within 1 LSB on < 1 % of
-bytes (the fold matmul sums in another order on the card).
+bank > 110 dB at every site of the mode-0 slice and at the tiled body's
+edge geometries (f32 sums in another order than the plain SGEMM's), the
+channelizer epilogue byte-equal (it rounds every product and sum as torch
+eager does), the direct-form decimating FIR > 110 dB, and the receiver on
+the card against its own CPU run: audio > 60 dB, RDS bits equal. The
+two-stage wideband path's u8 station streams agree with the CPU run within
+1 LSB on < 1 % of bytes (the fold matmul sums in another order on the
+card).
 """
 
 import math
@@ -26,9 +28,12 @@ from real_time_sdr_tpu_torch.models.receiver import Receiver
 from real_time_sdr_tpu_torch.ops.cuda import (chan_epilogue, fir_bank,
                                               fir_decimate, frontend_fused)
 from real_time_sdr_tpu_torch.ops.cuda.chan_epilogue import chan_epilogue_plain
-from real_time_sdr_tpu_torch.ops.cuda.fir_bank import fir_bank_plain
+from real_time_sdr_tpu_torch.ops.cuda.fir_bank import (TILED_TILE,
+                                                       fir_bank_plain,
+                                                       kernel_body)
 from real_time_sdr_tpu_torch.ops.cuda.fir_kernels import fir_decimate_plain
 from real_time_sdr_tpu_torch.ops.cuda.frontend_fused import frontend_plain
+from real_time_sdr_tpu_torch.ops.fir import PolyFIR, make_bank
 from real_time_sdr_tpu_torch.utils import synth
 from real_time_sdr_tpu_torch.parallel.channel import ChannelBank
 from real_time_sdr_tpu_torch.utils.state import map_state
@@ -83,14 +88,64 @@ def test_fir_bank_kernel_matches_plain(card, site):
     for name in site.split("."):
         bank = getattr(bank, name)
     n = 2 * rx.cfg.if_block if "rrc" not in site else rx.cfg.rds_block
+    body = kernel_body(bank.geometry)
     rng = np.random.default_rng(len(site))
     xx = torch.from_numpy(rng.standard_normal(
         (SITES[site], bank.tail_len + n)).astype(np.float32)).cuda()
-    before = fir_bank.launches
+    before = fir_bank.launches, fir_bank.body_launches[body]
     yk = fir_bank(xx, bank.taps, bank.w, bank.geometry)
-    assert fir_bank.launches == before + 1
+    assert (fir_bank.launches, fir_bank.body_launches[body]) == tuple(
+        v + 1 for v in before)
     yp = fir_bank_plain(xx, bank.w, bank.geometry)
     assert yk.shape == yp.shape
+    assert _snr(yp, yk) > 110.0
+
+
+def _bank_case(nf, k_taps, rows, n, down=1, shift=0, seed=0):
+    """A random nf-filter bank and tail-prefixed rows on the card; with
+    ``shift`` the rows start that many floats past an aligned address."""
+    rng = np.random.default_rng(seed)
+    bank = make_bank([PolyFIR(rng.standard_normal(k_taps), down=down)
+                      for _ in range(nf)]).cuda()
+    length = bank.tail_len + n
+    store = torch.from_numpy(rng.standard_normal(
+        rows * length + shift).astype(np.float32)).cuda()
+    return bank, store[shift:].view(rows, length)
+
+
+# (nf, K, rows, n, shift): n at 1, the tiled body's tile edges and the
+# main path's 88,200; K from 2 to the RDS sync pair's 191; one row; rows
+# whose starts are not 16-byte aligned (4*L % 16 != 0, or a shifted start)
+TILED_CASES = [
+    (1, 2, 3, 1, 0), (2, 101, 2, TILED_TILE - 1, 0),
+    (3, 127, 2, TILED_TILE, 0), (4, 191, 2, TILED_TILE + 1, 0),
+    (1, 101, 1, 88_200, 0), (3, 101, 2, 88_200, 0), (2, 127, 2, 88_200, 0),
+    (2, 191, 2, 88_200, 1), (4, 101, 3, 2 * TILED_TILE + 5, 3),
+    (1, 127, 4, TILED_TILE + 1, 2), (3, 2, 2, 3, 1), (4, 191, 1, 1, 0),
+]
+
+
+@pytest.mark.parametrize("nf, k_taps, rows, n, shift", TILED_CASES)
+def test_fir_bank_tiled_body_matches_plain(card, nf, k_taps, rows, n, shift):
+    bank, xx = _bank_case(nf, k_taps, rows, n, shift=shift,
+                          seed=nf * 1000 + k_taps + n)
+    assert kernel_body(bank.geometry) == "tiled"
+    before = fir_bank.body_launches["tiled"]
+    yk = fir_bank(xx, bank.taps, bank.w, bank.geometry)
+    assert fir_bank.body_launches["tiled"] == before + 1
+    yp = fir_bank_plain(xx, bank.w, bank.geometry)
+    assert yk.shape == yp.shape == (rows, nf, n)
+    assert _snr(yp, yk) > 110.0
+
+
+@pytest.mark.parametrize("down", [1, 2])
+def test_fir_bank_runs_more_than_65535_rows(card, down):
+    """70,000 short rows (K 101, n 16) on the flat grid, through each
+    body."""
+    bank, xx = _bank_case(1, 101, 70_000, 16, down=down, seed=down)
+    yk = fir_bank(xx, bank.taps, bank.w, bank.geometry)
+    yp = fir_bank_plain(xx, bank.w, bank.geometry)
+    assert yk.shape == yp.shape == (70_000, 1, 16 // down)
     assert _snr(yp, yk) > 110.0
 
 

@@ -32,11 +32,16 @@ from real_time_sdr_tpu.ops.pll import PllParams as JPllParams
 from real_time_sdr_tpu.ops.sync import FeedforwardSync as JSync
 from real_time_sdr_tpu.utils import audio as jaudio
 from real_time_sdr_tpu.utils import synth as jsynth
+from real_time_sdr_tpu_torch.models.channelizer import Channelizer
 from real_time_sdr_tpu_torch.models.frontend import Frontend
+from real_time_sdr_tpu_torch.models.receiver import Receiver
 from real_time_sdr_tpu_torch.ops import fir as tfir
 from real_time_sdr_tpu_torch.ops.cuda import (chan_epilogue, fir_bank,
                                               fir_decimate, frontend_fused)
 from real_time_sdr_tpu_torch.ops.cuda.chan_epilogue import chan_epilogue_plain
+from real_time_sdr_tpu_torch.ops.cuda.fir_bank import (TILED_TILE,
+                                                       fir_bank_plain,
+                                                       kernel_body)
 from real_time_sdr_tpu_torch.ops.cuda.fir_kernels import (fir_decimate_planes,
                                                           fir_decimate_plain)
 from real_time_sdr_tpu_torch.ops.cuda.frontend_fused import frontend_plain
@@ -115,6 +120,60 @@ def test_fir_bank_plain_matches_jax(name):
                                           np.asarray(j_poly[i]))
         np.testing.assert_array_equal(t_bank.numpy(), np.asarray(j_xla))
         np.testing.assert_array_equal(np.asarray(j_pal), np.asarray(j_xla))
+
+
+# (K, n): n at 1 and at the tiled kernel body's tile edges, K from 2 to 191
+EDGES = [(2, 1), (101, TILED_TILE - 1), (127, TILED_TILE), (191, TILED_TILE + 1)]
+
+
+@pytest.mark.parametrize("k_taps, n", EDGES)
+@pytest.mark.parametrize("nf", [1, 2, 3, 4])
+def test_fir_bank_plain_matches_direct_form(nf, k_taps, n):
+    """The oracle of the card tests: the plain framed matmul at up = 1
+    against y_f[n] = sum_m h_f[m] xx[n + K-1 - m] in float64 on the same
+    f32 taps and input, > 120 dB (f32 rounding of a K-term sum)."""
+    rng = np.random.default_rng(nf * 1000 + k_taps)
+    h = rng.standard_normal((nf, k_taps)).astype(np.float32)
+    bank = tfir.make_bank([tfir.PolyFIR(t) for t in h])
+    xx = rng.standard_normal((2, k_taps - 1 + n)).astype(np.float32)
+    got = fir_bank_plain(torch.from_numpy(xx), bank.w, bank.geometry).numpy()
+    win = np.lib.stride_tricks.sliding_window_view(xx.astype(np.float64),
+                                                   k_taps, axis=-1)
+    ref = np.einsum("bnk,fk->bfn", win, h[:, ::-1].astype(np.float64))
+    assert got.shape == ref.shape == (2, nf, n)
+    assert _snr(ref, got) > 120.0, _snr(ref, got)
+
+
+# every FIR bank of the stereo + RDS receiver and the 64-station
+# channelizer -> the kernel body its geometry takes
+BODIES = {
+    "if_bank": "tiled", "audio.pb_bank": "tiled",
+    "audio.resamp_bank": "general", "audio.sync.bank": "tiled",
+    "rds_path.band_bank": "tiled", "rds_path.pilot_bank": "tiled",
+    "rds_path.baseband_bank": "general", "rds_path.rrc_bank": "tiled",
+    "rds_path.sync.bank": "tiled", "channelizer.bank": "general",
+}
+
+
+@pytest.fixture(scope="module")
+def fir_sites():
+    """name -> FIRBank over the receiver and the 64-station channelizer."""
+    rx = Receiver(0, stereo=True, rds=True, pll_tier=3)
+    offs = [int((k - 31.5) * 300_000) for k in range(64)]
+    ch = Channelizer(rx.cfg, 8 * rx.cfg.rf_fs, offs)
+    return {**{n: m for n, m in rx.named_modules()
+               if isinstance(m, tfir.FIRBank)},
+            "channelizer.bank": ch.bank}
+
+
+def test_fir_bank_sites_are_all_listed(fir_sites):
+    assert set(fir_sites) == set(BODIES)
+
+
+@pytest.mark.parametrize("site", sorted(BODIES))
+def test_fir_bank_body_choice(fir_sites, site):
+    """The geometry alone names the body: tiled at up == down == 1."""
+    assert kernel_body(fir_sites[site].geometry) == BODIES[site]
 
 
 def test_apf_delay_slice_exact():
