@@ -18,7 +18,13 @@ non-zero on failure:
    up = down = 1 and general otherwise, its useful GFLOP and TFLOP/s);
    the channelizer epilogue byte-equal at the 64-station shape;
    the direct-form decimating FIR > 110 dB at the audio-rail geometry,
-   beside the FIR bank at the same geometry;
+   beside the FIR bank at the same geometry; the sequential PLL
+   (``pll_scan``, the tier-1 carrier loop) > 80 dB against its plain
+   version run on the same card tensors, with an equal carry, at 32
+   channels x 1 mode-0 block with the stereo and RDS loop parameters, from
+   a cold carry and from a carry locked over 12 kernel blocks (it prints
+   whether the two are bit-identical); the tier-2 Newton twin > 40 dB
+   against the kernel over 2 blocks, with its time;
 4. mode-0 path: a synthetic station tiled to 32 channels (distinct time
    shifts) through ``Receiver(0, stereo=True, rds=True, pll_tier=3,
    device="cuda").run_segment`` over three chained 12-block segments; the
@@ -27,7 +33,19 @@ non-zero on failure:
    decode and its left/right channels carry their tones; channels 0-1 of
    the first two segments must agree with the port's own CPU run (audio
    > 60 dB, RDS bits equal from a carried state); warm segments are timed
-   for the aggregate real-time multiple;
+   for the aggregate real-time multiple; then the same 32 x 12 segments
+   at the default tier 1 (``pll_scan`` launches rise, PS/PI decode, warm
+   segments timed beside tier 3; ``pll_scan`` again > 80 dB against its
+   plain version, on the stereo and RDS pilots of one real tier-1 segment
+   at (32, 88,200) with the plain version on channels 0-1, and at the
+   CLI's (1, 7,350), each with kernel ms), and one 2-block segment at
+   tier 2;
+   then modes 1-3 at 32 ch x 12 blk, type r, tier 3: the frontend > 90 dB
+   (mode 3 decimates by 3) and each new FIR-bank geometry (audio 1/9,
+   147/800, 147/1280; RDS 247/960, 19/96, 95/768) > 110 dB against their
+   plain versions, PS/PI decoded on channel 0, channels 0-1 against the
+   CPU run (audio > 60 dB, RDS bits equal from a carried state), warm
+   segments timed;
 5. wideband paths: 64 stations on the 300 kHz raster in one 19.2 MS/s
    capture (3 real stations, the other slots empty), raw u8 bytes through
    ``ChannelBank.run_wideband_u8`` in 12-block segments, once through the
@@ -36,7 +54,17 @@ non-zero on failure:
    fused frontend (the FIR bank's tiled body must launch); PS/PI must
    decode on the 3 stations on both paths; the
    two-stage u8 of the first 2 blocks must agree with the CPU run (within
-   1 LSB on < 1 % of bytes); warm segments are timed.
+   1 LSB on < 1 % of bytes); warm segments are timed;
+6. CLI: ``python -m real_time_sdr_tpu_torch.cli 0 r --stats`` in a
+   subprocess with its defaults (tier 1, comb timing, pinned staged
+   upload, one group in flight) on a 192-block synthetic capture (48
+   blocks played 4 times): PS, PI
+   and PTY on stderr, the exact PCM byte count, the kernels launched
+   (its ``kernel launches`` line), its real-time multiple and p50/p99
+   ingest->PCM latency against the 30.6 ms block deadline; then
+   ``--staged 0``, ``0`` and ``1`` with ``--stats`` (identical PCM; each
+   run's ms per block and p50/p99 printed beside the pinned upload's);
+   ``2 r --pll-tier 1`` decodes PS.
 
 Each path's kernel counts are set to 0 just before it and read just after.
 The last two lines are the kernels' JSON and the device JSON.
@@ -53,9 +81,11 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 CH, BLOCKS, SEGMENTS = 32, 12, 3
+CLI_BLOCKS = 192      # the CLI capture: 5.88 s of radio at mode 0
 PS, PI, PTY = "H100 FM ", 0x3A5C, 5
 WB_STATIONS, WB_MULT, WB_SLOTS = 64, 8, (3, 32, 62)
 
@@ -93,6 +123,19 @@ def band_power(np, x, fs, f, width=30.0):
     sp = np.abs(np.fft.rfft(x * np.hanning(len(x)))) ** 2
     freqs = np.fft.rfftfreq(len(x), 1 / fs)
     return sp[(freqs > f - width) & (freqs < f + width)].sum()
+
+
+def tile_channels(np, iq, cfg):
+    """One station's capture tiled to CH channels with distinct time shifts,
+    cut into SEGMENTS segments of BLOCKS blocks: [(CH, seg bytes)] u8."""
+    seg_len = 2 * cfg.block_size_iq * BLOCKS
+    pairs = iq.reshape(-1, 2)
+    shifts = [0] + [int(s) for s in
+                    np.random.default_rng(0).integers(1, len(pairs), CH - 1)]
+    tiled = np.stack([np.roll(pairs, -s, axis=0).reshape(-1)
+                      for s in shifts])
+    return [np.ascontiguousarray(tiled[:, k * seg_len:(k + 1) * seg_len])
+            for k in range(SEGMENTS)]
 
 
 def decode(RdsFramer, bits, nbits, c):
@@ -161,7 +204,11 @@ def main() -> None:
             fir_decimate_plain
         from real_time_sdr_tpu_torch.ops.cuda.frontend_fused import \
             frontend_plain
+        from real_time_sdr_tpu_torch.ops.cuda.pll_scan import pll_scan_kernel
         from real_time_sdr_tpu_torch.ops.fir import PolyFIR, make_bank
+        from real_time_sdr_tpu_torch.ops.pll import (PllCarry, pll_init,
+                                                     pll_newton,
+                                                     pll_scan_plain)
         from real_time_sdr_tpu_torch.parallel.channel import ChannelBank
         from real_time_sdr_tpu_torch.utils import synth
         from real_time_sdr_tpu_torch.utils.state import map_state
@@ -200,16 +247,9 @@ def main() -> None:
     # -- fixture: one station, 36 blocks, tiled to 32 shifted channels -------
     rx = Receiver(0, stereo=True, rds=True, pll_tier=3, device=dev)
     cfg = rx.cfg
-    seg_len = 2 * cfg.block_size_iq * BLOCKS
     iq, truth = synth.station_iq(cfg, BLOCKS * SEGMENTS, ps_name=PS, pi=PI,
                                  pty=PTY)
-    pairs = iq.reshape(-1, 2)
-    shifts = [0] + [int(s) for s in
-                    np.random.default_rng(0).integers(1, len(pairs), CH - 1)]
-    tiled = np.stack([np.roll(pairs, -s, axis=0).reshape(-1)
-                      for s in shifts])                       # (CH, 36 blk)
-    segs = [np.ascontiguousarray(tiled[:, k * seg_len:(k + 1) * seg_len])
-            for k in range(SEGMENTS)]
+    segs = tile_channels(np, iq, cfg)
     print(f"fixture: {CH} ch x {BLOCKS} blk x {SEGMENTS} segments, "
           f"{segs[0].nbytes / 1e6:.1f} MB IQ per segment")
 
@@ -254,8 +294,9 @@ def main() -> None:
          cfg.if_block),
         ("rrc", rx.rds_path.rrc_bank, CH * BLOCKS, cfg.rds_block),
     ]
-    bank_err, bank_ms, bank_plain_ms, bank_sites = 0.0, 0.0, 0.0, {}
-    for name, bank, rows, n in sites:
+    def check_site(name, bank, rows, n):
+        """One FIR-bank site against its plain version: (ms, plain ms,
+        max abs err, body)."""
         xb = torch.from_numpy(rng.standard_normal(
             (rows, bank.tail_len + n)).astype(np.float32)).to(dev)
         g = bank.geometry
@@ -277,6 +318,11 @@ def main() -> None:
         if not s > 110.0:
             fail(f"fir_bank[{name}] disagrees with its plain version "
                  f"({s:.1f} dB)")
+        return t_k, t_p, err, body
+
+    bank_err, bank_ms, bank_plain_ms, bank_sites = 0.0, 0.0, 0.0, {}
+    for name, bank, rows, n in sites:
+        t_k, t_p, err, body = check_site(name, bank, rows, n)
         bank_err = max(bank_err, err)
         bank_ms += t_k
         bank_plain_ms += t_p
@@ -348,6 +394,98 @@ def main() -> None:
                                       plain_ms=fd_plain_ms)
     del xd, dk_, dp_
 
+    def check_pll(label, xk, c0, p, rows, plain_reps):
+        """pll_scan on (xk, c0) against its plain version run on the first
+        ``rows`` rows of the same card tensors: SNR > 80 dB and an equal
+        carry (trig exact). Kernel ms: median of 10 launches; plain ms:
+        median of ``plain_reps`` calls, or the one comparison call when 0."""
+        yk, ck = pll_scan_kernel.launch(xk, c0, p)
+        cp0 = PllCarry(*(t[:rows] for t in c0))
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        yp, cp = pll_scan_plain(xk[:rows], cp0, p)
+        b.record()
+        b.synchronize()
+        yk, ck = yk[:rows], PllCarry(*(t[:rows] for t in ck))
+        s_ = snr_db(yp, yk)
+        err = (yk - yp).abs().max().item()
+        cerr = max((u.double() - v.double()).abs().max().item()
+                   for u, v in zip(ck, cp))
+        same = (torch.equal(yk, yp)
+                and all(torch.equal(u, v) for u, v in zip(ck, cp)))
+        t_k = device_ms(torch, lambda: pll_scan_kernel.launch(xk, c0, p))
+        t_p = (device_ms(torch, lambda: pll_scan_plain(xk[:rows], cp0, p),
+                         reps=plain_reps) if plain_reps else a.elapsed_time(b))
+        print(f"kernel pll_scan[{label}]: {tuple(xk.shape)}, plain on "
+              f"{rows} row(s): SNR {s_:.1f} dB vs plain, max abs err "
+              f"{err:.3g}, carry max err {cerr:.3g}, bit-identical {same}; "
+              f"kernel {t_k:.4f} ms, plain {t_p:.2f} ms "
+              f"({max(plain_reps, 1)} call(s), {rows} row(s))")
+        if not (s_ > 80.0 and torch.equal(ck.trig, cp.trig)
+                and cerr < 1e-4):
+            fail(f"pll_scan[{label}] disagrees with its plain version "
+                 f"({s_:.1f} dB, carry err {cerr:.3g})")
+        return dict(shape=list(xk.shape), plain_rows=rows, ms=t_k,
+                    plain_ms=t_p, snr_db=s_, max_abs_err=max(err, cerr),
+                    bit_identical=same)
+
+    # sequential PLL (the tier-1 carrier loop) at 32 channels x 1 mode-0
+    # block, with the stereo (19 kHz, x2) and RDS (114 kHz, x0.5) loops, on
+    # pilots with a frequency offset and noise; the plain version runs the
+    # same card tensors. Cold: from pll_init; locked: from the carry after
+    # 12 kernel blocks.
+    n_blk = cfg.if_block
+    t_pil = np.arange(13 * n_blk) / cfg.if_fs
+    pilots, pll_cases = {}, {}
+    for loop, p, off in (("stereo", rx.audio.pll_params, 30.0),
+                         ("rds", rx.rds_path.pll_params, -6.0)):
+        ph = rng.uniform(0.0, 2.0 * np.pi, (CH, 1))
+        pil = torch.from_numpy((np.cos(2 * np.pi * (p.freq + off) * t_pil
+                                       + ph)
+                                + 0.05 * rng.standard_normal(
+                                    (CH, t_pil.size))).astype(
+                                        np.float32)).to(dev)
+        blocks = [pil[:, k * n_blk:(k + 1) * n_blk] for k in range(13)]
+        pilots[loop] = (p, blocks)
+        carry = pll_init(CH, dev)
+        for k in range(12):
+            _, carry = pll_scan_kernel.launch(blocks[k], carry, p)
+        pll_cases[f"{loop}_cold"] = check_pll(
+            f"{loop}, cold", blocks[0], pll_init(CH, dev), p, CH, 0)
+        pll_cases[f"{loop}_locked"] = check_pll(
+            f"{loop}, locked", blocks[12], carry, p, CH, 3)
+    kernels[pll_scan_kernel.name] = dict(
+        ms=sum(v["ms"] for k, v in pll_cases.items() if "locked" in k),
+        plain_ms=sum(v["plain_ms"] for k, v in pll_cases.items()
+                     if "locked" in k),
+        cases=pll_cases)
+    print(f"pll_scan, both loops of one mode-0 block at {CH} ch (locked): "
+          f"kernel {kernels['pll_scan']['ms']:.4f} ms, plain "
+          f"{kernels['pll_scan']['plain_ms']:.2f} ms")
+    # tier 2 (Newton, plain torch on the card) against the kernel over 2
+    # blocks from the carry locked over 11 kernel blocks. (From a cold carry
+    # Newton's linearization fails for initial phase errors near pi -- the
+    # JAX package's pll_newton as well -- so its bound holds in lock.)
+    for loop, (p, blocks) in pilots.items():
+        ck_ = pll_init(CH, dev)
+        for k in range(11):
+            _, ck_ = pll_scan_kernel.launch(blocks[k], ck_, p)
+        cn_, snrs2 = ck_, []
+        for k in (11, 12):
+            yk, ck_ = pll_scan_kernel.launch(blocks[k], ck_, p)
+            yn, cn_ = pll_newton(blocks[k], cn_, p)
+            snrs2.append(min(snr_db(yk[c], yn[c]) for c in range(CH)))
+        t_n = device_ms(torch, lambda: pll_newton(blocks[12], cn_, p),
+                        reps=3)
+        print(f"tier 2 pll_newton[{loop}]: ({CH}, {n_blk}), 2 blocks from a "
+              f"locked carry: worst channel {min(snrs2):.1f} dB vs the "
+              f"kernel; {t_n:.2f} ms per block")
+        if not min(snrs2) > 40.0:
+            fail(f"tier 2 [{loop}] disagrees with tier 1 "
+                 f"({min(snrs2):.1f} dB)")
+    del pilots
+
     launches = {k.name: 0 for k in KERNELS}
     by_path, bodies_by_path = {}, {}
 
@@ -372,46 +510,109 @@ def main() -> None:
                 fail(f"fir_bank's {body} body was not launched on the "
                      f"{path} path")
 
-    # -- 4. mode-0 path -------------------------------------------------------
-    reset_counts()
-    state = rx.init_state(CH)
-    outs, states, seg_ms = [], [], []
-    for seg in segs:
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        state, out = rx.run_segment(state, torch.from_numpy(seg).to(dev))
-        b.record()
-        b.synchronize()
-        seg_ms.append(a.elapsed_time(b))
-        outs.append(out)
-        states.append(state)
-    count_path("mode0", (frontend_fused.name, fir_bank.name),
-               ("tiled", "general"))
-    print(f"mode-0 path: {SEGMENTS} chained segments of {CH} ch x {BLOCKS} "
-          f"blk, {', '.join(f'{t:.2f}' for t in seg_ms)} ms (H2D included)")
+    def run_path(path, rxp, segs_p, needed):
+        """SEGMENTS chained segments of CH ch x BLOCKS blk through
+        ``rxp.run_segment``, each timed with events (H2D included); counts
+        reset just before and read just after; output shapes, finite
+        audio and channel 0's PS/PI checked. Returns (outs, states,
+        segment ms, left, right)."""
+        c = rxp.cfg
+        reset_counts()
+        st = rxp.init_state(CH)
+        outs_p, states_p, ms = [], [], []
+        for seg in segs_p:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            st, out = rxp.run_segment(st, torch.from_numpy(seg).to(dev))
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+            outs_p.append(out)
+            states_p.append(st)
+        count_path(path, needed, ("tiled", "general"))
+        print(f"{path} path: {SEGMENTS} chained segments of {CH} ch x "
+              f"{BLOCKS} blk, {', '.join(f'{t:.2f}' for t in ms)} ms (H2D "
+              "included)")
+        n_audio = c.audio_block * BLOCKS
+        for out in outs_p:
+            for t, shape in ((out.left, (CH, n_audio)),
+                             (out.right, (CH, n_audio)),
+                             (out.rds_bits, (CH, BLOCKS, c.max_bits)),
+                             (out.rds_nbits, (CH, BLOCKS))):
+                if tuple(t.shape) != shape:
+                    fail(f"{path}: output shape {tuple(t.shape)} != {shape}")
+            if not (torch.isfinite(out.left).all() and
+                    torch.isfinite(out.right).all()):
+                fail(f"{path}: non-finite audio")
+        left = torch.cat([o.left for o in outs_p], -1).cpu().numpy()
+        right = torch.cat([o.right for o in outs_p], -1).cpu().numpy()
+        bits = torch.cat([o.rds_bits for o in outs_p], 1).cpu().numpy()
+        nbits = torch.cat([o.rds_nbits for o in outs_p], 1).cpu().numpy()
+        decoded = [decode(RdsFramer, bits, nbits, ch_) for ch_ in range(CH)]
+        ev = decoded[0]
+        print(f"{path} channel 0: PS {ev.ps_name!r}, PI "
+              f"{ev.pi and hex(ev.pi)}, PTY {ev.pty!r}, groups "
+              f"{ev.groups_decoded}; PS decoded on "
+              f"{sum(e.ps_name == PS for e in decoded)}/{CH} channels")
+        if ev.ps_name != PS or ev.pi != PI:
+            fail(f"{path}: channel 0 did not decode the station's PS/PI")
+        return outs_p, states_p, ms, left, right
 
-    n_audio = cfg.audio_block * BLOCKS
-    for out in outs:
-        for t, shape in ((out.left, (CH, n_audio)), (out.right, (CH, n_audio)),
-                         (out.rds_bits, (CH, BLOCKS, cfg.max_bits)),
-                         (out.rds_nbits, (CH, BLOCKS))):
-            if tuple(t.shape) != shape:
-                fail(f"output shape {tuple(t.shape)} != {shape}")
-        if not (torch.isfinite(out.left).all() and
-                torch.isfinite(out.right).all()):
-            fail("non-finite audio")
-    left = torch.cat([o.left for o in outs], -1).cpu().numpy()
-    right = torch.cat([o.right for o in outs], -1).cpu().numpy()
-    bits = torch.cat([o.rds_bits for o in outs], 1).cpu().numpy()
-    nbits = torch.cat([o.rds_nbits for o in outs], 1).cpu().numpy()
-    decoded = [decode(RdsFramer, bits, nbits, c) for c in range(CH)]
-    ev = decoded[0]
-    print(f"channel 0: PS {ev.ps_name!r}, PI {ev.pi and hex(ev.pi)}, PTY "
-          f"{ev.pty!r}, groups {ev.groups_decoded}; PS decoded on "
-          f"{sum(e.ps_name == PS for e in decoded)}/{CH} channels")
-    if ev.ps_name != PS or ev.pi != PI:
-        fail("channel 0 did not decode the station's PS/PI")
+    def vs_cpu(path, rxp, segs_p, outs_p, states_p):
+        """The port's own CPU run (plain versions) on channels 0-1. Segment
+        1 from a cold start: audio (the cold-start RDS carrier sign is set
+        by rounding at ~1e-31 magnitudes, which differential decoding
+        absorbs). Segment 2 from the card's state after segment 1, moved
+        to the CPU: audio and RDS bits."""
+        ref = Receiver(rxp.cfg, stereo=True, rds=True, pll_tier=rxp.pll_tier,
+                       device="cpu")
+        _, r1 = ref.run_segment(ref.init_state(2),
+                                torch.from_numpy(segs_p[0][:2]))
+        _, r2 = ref.run_segment(map_state(states_p[0],
+                                          lambda t: t[:2].cpu()),
+                                torch.from_numpy(segs_p[1][:2]))
+        pairs_ = ((r1, outs_p[0]), (r2, outs_p[1]))
+        snrs = [snr_db(getattr(r, rail)[c], getattr(o, rail)[c].cpu())
+                for rail in ("left", "right") for r, o in pairs_
+                for c in range(2)]
+        same_bits = (torch.equal(r2.rds_bits, outs_p[1].rds_bits[:2].cpu())
+                     and torch.equal(r2.rds_nbits,
+                                     outs_p[1].rds_nbits[:2].cpu()))
+        print(f"{path} card vs CPU run (ch 0-1, segments 1-2): audio SNR "
+              f"min {min(snrs):.1f} dB, segment-2 RDS bits equal: "
+              f"{same_bits}")
+        if not (min(snrs) > 60.0 and same_bits):
+            fail(f"the card's {path} path disagrees with the CPU run")
+
+    def warm(path, rxp, st, segs_p, ms, reps):
+        """Warm segments: the chain continues over the same segments;
+        events split each into its H2D copy (pageable host memory) and the
+        receiver's run. Returns (median ms, median H2D ms, state)."""
+        warm_ms, h2d = ms[1:], []
+        for k in range(reps):
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            marks[0].record()
+            x = torch.from_numpy(segs_p[k % SEGMENTS]).to(dev)
+            marks[1].record()
+            st, _ = rxp.run_segment(st, x)
+            marks[2].record()
+            marks[2].synchronize()
+            warm_ms.append(marks[0].elapsed_time(marks[2]))
+            h2d.append(marks[0].elapsed_time(marks[1]))
+        med_ = statistics.median(warm_ms)
+        radio = BLOCKS * rxp.cfg.block_size_iq / rxp.cfg.rf_fs
+        print(f"{path} warm segment: median {med_:.3f} ms over "
+              f"{len(warm_ms)} (min {min(warm_ms):.3f}, max "
+              f"{max(warm_ms):.3f}), of which H2D "
+              f"{statistics.median(h2d):.3f} ms; aggregate "
+              f"{CH * radio / (med_ / 1e3):.1f}x real time ({CH} ch x "
+              f"{radio:.4f} s of radio per segment) on {card}")
+        return med_, statistics.median(h2d), st
+
+    # -- 4. mode-0 path -------------------------------------------------------
+    outs, states, seg_ms, left, right = run_path(
+        "mode0", rx, segs, (frontend_fused.name, fir_bank.name))
     fs = float(cfg.audio_fs)
     skip = 3 * cfg.audio_block
     sep_l = (band_power(np, left[0, skip:], fs, 440)
@@ -422,56 +623,128 @@ def main() -> None:
           f"1200 Hz R/L {sep_r:.1f}")
     if not (sep_l > 30 and sep_r > 30):
         fail("left/right do not carry their tones")
-
-    # reference on a small input: the port's own CPU run (plain versions)
-    # on channels 0-1. Segment 1 from a cold start: audio (the cold-start
-    # RDS carrier sign is set by rounding at ~1e-31 magnitudes, which
-    # differential decoding absorbs). Segment 2 from the card's state after
-    # segment 1, moved to the CPU: audio and RDS bits.
-    ref = Receiver(0, stereo=True, rds=True, pll_tier=3, device="cpu")
-    _, r1 = ref.run_segment(ref.init_state(2), torch.from_numpy(segs[0][:2]))
-    _, r2 = ref.run_segment(map_state(states[0], lambda t: t[:2].cpu()),
-                            torch.from_numpy(segs[1][:2]))
-    snrs = [snr_db(r.left[c], o.left[c].cpu())
-            for r, o in ((r1, outs[0]), (r2, outs[1])) for c in range(2)]
-    snrs += [snr_db(r.right[c], o.right[c].cpu())
-             for r, o in ((r1, outs[0]), (r2, outs[1])) for c in range(2)]
-    same_bits = (torch.equal(r2.rds_bits, outs[1].rds_bits[:2].cpu())
-                 and torch.equal(r2.rds_nbits, outs[1].rds_nbits[:2].cpu()))
-    print(f"card vs CPU run (ch 0-1, segments 1-2): audio SNR min "
-          f"{min(snrs):.1f} dB, segment-2 RDS bits equal: {same_bits}")
-    if not (min(snrs) > 60.0 and same_bits):
-        fail("the card's mode-0 path disagrees with the CPU run")
-
-    # warm timing: the chain continues over the same segments; events
-    # split each segment into its H2D copy (pageable host memory) and the
-    # receiver's run
-    warm_ms, h2d_ms = seg_ms[1:], []
-    for k in range(10):
-        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        marks[0].record()
-        x = torch.from_numpy(segs[k % SEGMENTS]).to(dev)
-        marks[1].record()
-        state, _ = rx.run_segment(state, x)
-        marks[2].record()
-        marks[2].synchronize()
-        warm_ms.append(marks[0].elapsed_time(marks[2]))
-        h2d_ms.append(marks[0].elapsed_time(marks[1]))
-    med = statistics.median(warm_ms)
-    radio_s = BLOCKS * cfg.block_size_iq / cfg.rf_fs
-    print(f"mode-0 warm segment: median {med:.3f} ms over {len(warm_ms)} "
-          f"(min {min(warm_ms):.3f}, max {max(warm_ms):.3f}), of which H2D "
-          f"{statistics.median(h2d_ms):.3f} ms; aggregate "
-          f"{CH * radio_s / (med / 1e3):.1f}x real time ({CH} ch x "
-          f"{radio_s:.4f} s of radio per segment) on {card}")
+    vs_cpu("mode0", rx, segs, outs, states)
+    med, h2d_med, state = warm("mode0", rx, states[-1], segs, seg_ms, 10)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
           f"GB on {card}")
     if args.profile:
         seg = torch.from_numpy(segs[0]).to(dev)
         profile_segment(torch, card, args.profile, "mode0",
-                        lambda: rx.run_segment(state, seg),
-                        med - statistics.median(h2d_ms))
-    del outs, states, state, segs, tiled
+                        lambda: rx.run_segment(state, seg), med - h2d_med)
+    del outs, states, state
+
+    # -- 4b. mode 0 at the default carrier tier 1, and at tier 2 -------------
+    rx1 = Receiver(0, stereo=True, rds=True, device=dev)
+    if rx1.pll_tier != 1:
+        fail(f"the receiver's default tier is {rx1.pll_tier}, not 1")
+    outs, states, seg_ms, _, _ = run_path(
+        "mode0_tier1", rx1, segs,
+        (frontend_fused.name, fir_bank.name, pll_scan_kernel.name))
+    vs_cpu("mode0_tier1", rx1, segs, outs, states)
+    med1, _, _ = warm("mode0_tier1", rx1, states[-1], segs, seg_ms, 5)
+    print(f"mode-0 warm segment, tier 1 vs tier 3: {med1:.3f} ms vs "
+          f"{med:.3f} ms")
+    # pll_scan at the shapes the tier-1 paths give it: the stereo and RDS
+    # pilots of one real segment, (32, 12 x 7,350) as mode0_tier1 runs
+    # them, and channel 0's first block, (1, 7,350) as the CLI runs them.
+    # The plain version is launch-bound (~1 s per 7,350 samples), so at the
+    # segment shape it runs channels 0-1 against the kernel's rows 0-1.
+    seen = {}
+
+    def capture(loop):
+        def hook(mod, args_):          # returns None: the inputs stay
+            seen.setdefault(loop, (mod.p, *args_))
+        return hook
+    hooks = [m.register_forward_pre_hook(capture(loop))
+             for loop, m in (("stereo", rx1.audio.sync),
+                             ("rds", rx1.rds_path.sync))]
+    rx1.run_segment(states[0], torch.from_numpy(segs[1]).to(dev))
+    for h in hooks:
+        h.remove()
+    seg_pll_ms = 0.0
+    for loop, (p, xs, cs) in seen.items():
+        case = check_pll(f"{loop}, tier-1 segment", xs, cs, p, 2, 0)
+        pll_cases[f"{loop}_segment"] = case
+        seg_pll_ms += case["ms"]
+        pll_cases[f"{loop}_cli"] = check_pll(
+            f"{loop}, CLI block", xs[:1, :n_blk].contiguous(),
+            PllCarry(*(t[:1] for t in cs)), p, 1, 3)
+    print(f"pll_scan per mode0_tier1 segment ({CH} x {BLOCKS * n_blk}, both "
+          f"loops): kernel {seg_pll_ms:.3f} ms of the {med1:.3f} ms warm "
+          f"segment; per CLI block (1 x {n_blk}, both loops): kernel "
+          f"{pll_cases['stereo_cli']['ms'] + pll_cases['rds_cli']['ms']:.4f}"
+          f" ms; on {card}")
+    kernels[pll_scan_kernel.name]["max_abs_err"] = max(
+        v["max_abs_err"] for v in pll_cases.values())
+    del outs, states, seen
+    rx2 = Receiver(0, stereo=True, rds=True, pll_tier=2, device=dev)
+    x2 = torch.from_numpy(np.ascontiguousarray(
+        segs[0][:, :2 * 2 * cfg.block_size_iq])).to(dev)
+    t2 = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, o2 = rx2.run_segment(rx2.init_state(CH), x2)
+        torch.cuda.synchronize()
+        t2.append((time.perf_counter() - t0) * 1e3)
+        if not torch.isfinite(o2.left).all():
+            fail("tier 2: non-finite audio")
+    print(f"mode0_tier2: one {CH} ch x 2 blk segment, "
+          f"{statistics.median(t2):.2f} ms (median of 3, host clock)")
+    del segs
+
+    # -- 4c. modes 1-3 at 32 ch x 12 blk, type r, tier 3 ---------------------
+    pi0m, pq0m = (torch.from_numpy(rng.uniform(-0.5, 0.5, CH).astype(
+        np.float32)).to(dev) for _ in range(2))
+    fe_modes, mode_sites = {}, {}
+    for mode in (1, 2, 3):
+        rxm = Receiver(mode, stereo=True, rds=True, pll_tier=3, device=dev)
+        cm = rxm.cfg
+        iq_m, _ = synth.station_iq(cm, BLOCKS * SEGMENTS, ps_name=PS, pi=PI,
+                                   pty=PTY)
+        segs_m = tile_channels(np, iq_m, cm)
+        fe = rxm.frontend
+        xx = torch.cat([fe.init_state(CH).iq_tail,
+                        torch.from_numpy(segs_m[0]).to(dev)], dim=-1)
+        dk, ik, qk = frontend_fused.launch(xx, fe.rf_fir.taps,
+                                           fe.rf_fir.down, pi0m, pq0m)
+        dp, ip, qp = frontend_plain(xx, fe.rf_fir, pi0m, pq0m)
+        torch.cuda.synchronize()
+        s_ = snr_db(dp, dk)
+        err = (dk - dp).abs().max().item()
+        t_k = device_ms(torch, lambda: frontend_fused.launch(
+            xx, fe.rf_fir.taps, fe.rf_fir.down, pi0m, pq0m))
+        t_p = device_ms(torch, lambda: frontend_plain(xx, fe.rf_fir, pi0m,
+                                                      pq0m))
+        print(f"kernel frontend_fused[mode {mode}]: down {fe.rf_fir.down}, "
+              f"({CH}, {xx.shape[1]}) u8 -> {tuple(dk.shape)}: SNR "
+              f"{s_:.1f} dB vs plain, max abs err {err:.3g}; kernel "
+              f"{t_k:.4f} ms, plain {t_p:.4f} ms")
+        if not s_ > 90.0:
+            fail(f"mode {mode}: frontend kernel disagrees with its plain "
+                 f"version ({s_:.1f} dB)")
+        fe_modes[mode] = dict(ms=t_k, plain_ms=t_p, snr_db=s_)
+        kernels[frontend_fused.name]["max_abs_err"] = max(
+            kernels[frontend_fused.name]["max_abs_err"], err)
+        del xx, dk, dp
+        a_up, a_down = cm.audio_up, cm.audio_down
+        r_up, r_down = cm.rds_resample
+        for name, bank, rows, n in (
+                (f"mode{mode}_audio_{a_up}_{a_down}", rxm.audio.resamp_bank,
+                 2 * CH, cm.if_block * BLOCKS),
+                (f"mode{mode}_rds_baseband_{r_up}_{r_down}",
+                 rxm.rds_path.baseband_bank, CH * BLOCKS, cm.if_block)):
+            t_k, t_p, err, body = check_site(name, bank, rows, n)
+            mode_sites[name] = dict(ms=t_k, plain_ms=t_p, body=body)
+            kernels[fir_bank.name]["max_abs_err"] = max(
+                kernels[fir_bank.name]["max_abs_err"], err)
+        outs, states, seg_ms, _, _ = run_path(
+            f"mode{mode}", rxm, segs_m, (frontend_fused.name, fir_bank.name))
+        vs_cpu(f"mode{mode}", rxm, segs_m, outs, states)
+        warm(f"mode{mode}", rxm, states[-1], segs_m, seg_ms, 5)
+        del outs, states, segs_m
+    kernels[frontend_fused.name]["modes"] = fe_modes
+    kernels[fir_bank.name]["mode_sites"] = mode_sites
 
     # -- 5. wideband paths ----------------------------------------------------
     wide_fs = WB_MULT * cfg.rf_fs
@@ -579,6 +852,96 @@ def main() -> None:
     print(f"fused frontend: lo {wf.lo}, R {wf.r_n}, J {wf.j_w}, weights "
           f"{tuple(wf.w.shape)}")
     run_wideband("fused", wf, (fir_bank.name,))
+    del wf, wbank, wsegs, raw
+
+    # -- 6. the pipe CLI, in a subprocess, at its defaults --------------------
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+
+    def run_cli(args_, capture, out_path):
+        """`python -m real_time_sdr_tpu_torch.cli ARGS < capture > out`:
+        (stderr text, PCM bytes); fails on a non-zero exit."""
+        t0 = time.perf_counter()
+        with open(capture, "rb") as fin, open(out_path, "wb") as fout:
+            res = subprocess.run(
+                [sys.executable, "-m", "real_time_sdr_tpu_torch.cli",
+                 *args_], stdin=fin, stdout=fout, stderr=subprocess.PIPE,
+                text=True, env=env, cwd=root, timeout=300)
+        if res.returncode != 0:
+            fail(f"CLI {' '.join(args_)} exited {res.returncode}:\n"
+                 f"{res.stderr[-3000:]}")
+        print(f"CLI {' '.join(args_)}: {time.perf_counter() - t0:.1f} s "
+              "wall, process start and set-up included")
+        with open(out_path, "rb") as f:
+            return res.stderr, f.read()
+
+    def cli_stats(err):
+        """(ms per block, x real time, p50 ms, p99 ms) from a --stats run's
+        ``total`` and ``block latency`` lines."""
+        lines_ = err.splitlines()
+        tot = next(ln for ln in lines_ if ln.startswith("total:")).split()
+        lat = next(ln for ln in lines_ if ln.startswith("block latency"))
+        return (float(tot[4]), float(tot[6].rstrip("x")),
+                float(lat.split("p50 ")[1].split()[0]),
+                float(lat.split("p99 ")[1].split()[0]))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cap0 = os.path.join(tmp, "mode0.raw")
+        # 48 synthesized blocks played 4 times: enough blocks that p99
+        # latency is not just the first block's set-up
+        iq_cli, _ = synth.station_iq(cfg, CLI_BLOCKS // 4, ps_name=PS,
+                                     pi=PI, pty=PTY)
+        np.tile(iq_cli, 4).tofile(cap0)
+        err, pcm = run_cli(["0", "r", "--stats"], cap0,
+                           os.path.join(tmp, "a.pcm"))
+        lines = err.splitlines()
+        want = CLI_BLOCKS * cfg.audio_block * 2 * 2
+        for line in lines:
+            if line.startswith(("total:", "block latency", "output:",
+                                "RDS summary", "kernel launches")):
+                print(f"  cli: {line}")
+        got = json.loads(next(ln for ln in lines if ln.startswith(
+            "kernel launches: "))[len("kernel launches: "):])
+        by_path["cli"] = got
+        for name, n in got.items():
+            launches[name] += n
+        for name in (frontend_fused.name, fir_bank.name,
+                     pll_scan_kernel.name):
+            if got.get(name, 0) <= 0:
+                fail(f"kernel {name} was not launched by the CLI")
+        if not (f"Program Service: {PS}" in lines and f"PI: {PI:x}" in lines
+                and any(ln.startswith("PTY: ") for ln in lines)):
+            fail("the CLI did not print the station's PS/PI/PTY")
+        if len(pcm) != want:
+            fail(f"the CLI wrote {len(pcm)} PCM bytes, not {want}")
+        print(f"CLI on {card}: {CLI_BLOCKS} blocks, {len(pcm)} PCM bytes, "
+              f"PS/PI/PTY decoded")
+        # the two upload paths in the order 0, 0, 1 after the first run's
+        # default (auto = 1): per-block time and latency of each run
+        runs = {"1": [cli_stats(err)]}
+        for k, staged in enumerate(("0", "0", "1")):
+            err_k, pcm_k = run_cli(["0", "r", "--stats", "--staged", staged],
+                                   cap0, os.path.join(tmp, f"s{k}.pcm"))
+            if pcm_k != pcm:
+                fail(f"--staged {staged} PCM differs from the first run's")
+            runs.setdefault(staged, []).append(cli_stats(err_k))
+        for staged, rs in runs.items():
+            print(f"CLI --staged {staged} on {card}: "
+                  + "; ".join(f"{r[0]:.2f} ms/block, {r[1]:.1f}x real time, "
+                              f"p50 {r[2]:.1f} ms, p99 {r[3]:.1f} ms"
+                              for r in rs))
+        print("CLI --staged 0 and 1: PCM identical")
+        cfg2 = Receiver(2).cfg
+        cap2 = os.path.join(tmp, "mode2.raw")
+        synth.station_iq(cfg2, 40, ps_name=PS, pi=PI, pty=PTY)[0].tofile(cap2)
+        err2, pcm2 = run_cli(["2", "r", "--pll-tier", "1"], cap2,
+                             os.path.join(tmp, "c.pcm"))
+        if f"Program Service: {PS}" not in err2.splitlines():
+            fail("the mode-2 tier-1 CLI run did not decode PS")
+        if len(pcm2) != 40 * cfg2.audio_block * 2 * 2:
+            fail("the mode-2 CLI run wrote the wrong PCM byte count")
+        print("CLI 2 r --pll-tier 1: PS decoded")
 
     if "jax" in sys.modules:
         fail("jax was imported")

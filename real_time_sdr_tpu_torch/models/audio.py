@@ -1,7 +1,8 @@
-"""Audio chains: mono extraction and tier-3 stereo matrixing.
+"""Audio chains: mono extraction and stereo pilot-carrier matrixing.
 
-Port of ``real_time_sdr_tpu/models/audio.py`` (tier 3 only). The stereo
-chain: pilot BPF 18.5-19.5 kHz -> feedforward sync -> 38 kHz carrier;
+Port of ``real_time_sdr_tpu/models/audio.py``. The stereo chain: pilot BPF
+18.5-19.5 kHz -> carrier loop (tier 1 exact PLL, tier 2 its Newton twin,
+tier 3 feedforward sync) -> 38 kHz carrier;
 stereo BPF 22-54 kHz -> x carrier x2 -> baseband L-R; mono through an
 all-pass delay for group-delay alignment; both rails resampled to the audio
 rate in ONE FIR-bank call (the rails stacked as batch rows); L = M+S,
@@ -19,8 +20,8 @@ from real_time_sdr_tpu import config as C
 from real_time_sdr_tpu.config import ReceiverConfig
 from real_time_sdr_tpu.ops import filters
 from real_time_sdr_tpu_torch.ops.fir import PolyFIR, make_bank, state_len
-from real_time_sdr_tpu_torch.ops.pll import PllParams
-from real_time_sdr_tpu_torch.ops.sync import FeedforwardSync, FFSyncCarry
+from real_time_sdr_tpu_torch.ops.pll import PllCarry, PllParams
+from real_time_sdr_tpu_torch.ops.sync import FFSyncCarry, carrier_sync
 
 __all__ = ["MonoState", "MonoPath", "StereoState", "StereoPath"]
 
@@ -65,18 +66,14 @@ class StereoState(NamedTuple):
     delay_tail: torch.Tensor
     mono_tail: torch.Tensor
     stereo_tail: torch.Tensor
-    pll: FFSyncCarry
+    pll: FFSyncCarry | PllCarry   # tier 3 | tiers 1-2
 
 
 class StereoPath(nn.Module):
     """fm_demod -> (left, right) audio via the 19 kHz pilot + DSB-SC mix."""
 
-    def __init__(self, cfg: ReceiverConfig, pll_tier: int = 3):
+    def __init__(self, cfg: ReceiverConfig, pll_tier: int = 1):
         super().__init__()
-        if pll_tier != 3:
-            raise NotImplementedError(
-                f"pll_tier={pll_tier}: only tier 3 (feedforward sync) is "
-                "ported")
         self.cfg = cfg
         fs_if = cfg.rf_fs // cfg.rf_decim
         self.pilot_fir = PolyFIR(
@@ -88,8 +85,8 @@ class StereoPath(nn.Module):
         self.pb_bank = make_bank([self.pilot_fir, self.band_fir])
         self.resamp_bank = make_bank([self.mono_fir])
         self.pll_params = PllParams(freq=int(C.PILOT_FREQ), fs=fs_if,
-                                    nco_scale=2.0)
-        self.sync = FeedforwardSync(self.pll_params)
+                                    nco_scale=2.0, norm_bw=C.PLL_BW_STEREO)
+        self.sync = carrier_sync(self.pll_params, pll_tier)
 
     def init_state(self, batch: int) -> StereoState:
         dev = self.pb_bank.taps.device

@@ -9,6 +9,10 @@ Channels are the leading axis of every input, output and state leaf.
     rx = Receiver(0, stereo=True, rds=True, pll_tier=3, device="cuda")
     state = rx.init_state(32)
     state, out = rx.run_segment(state, iq)   # iq: (32, 12*147000) uint8
+
+The carrier tier is 1 (the exact sequential PLL, the JAX package's and the
+CLI's default), 2 (its Newton twin) or 3 (feedforward sync, the batched
+serving path); RDS timing is the per-block comb or the tracked CDR.
 """
 
 from __future__ import annotations
@@ -47,26 +51,27 @@ class Receiver(nn.Module):
     """Configured receiver chain.
 
     mode and type mirror the reference CLI: mono, stereo (``stereo=True``),
-    stereo + RDS (``stereo=True, rds=True``). Only the tier-3 feedforward
-    carrier sync and the comb CDR are ported.
+    stereo + RDS (``stereo=True, rds=True``).
     """
 
     def __init__(self, cfg: ReceiverConfig | int = 0, *, stereo: bool = False,
-                 rds: bool = False, pll_tier: int = 3,
+                 rds: bool = False, pll_tier: int = 1,
+                 rds_timing: str = "comb",
                  device: str | torch.device = "cpu"):
         super().__init__()
         if isinstance(cfg, int):
             cfg = mode_config(cfg)
-        if pll_tier != 3:
-            raise NotImplementedError(
-                f"pll_tier={pll_tier}: only tier 3 (feedforward sync) is "
-                "ported")
+        if pll_tier not in (1, 2, 3):
+            raise ValueError(f"pll_tier must be 1 (exact loop), 2 (Newton) "
+                             f"or 3 (feedforward); got {pll_tier!r}")
         self.cfg = cfg
         self.stereo = stereo
+        self.pll_tier = pll_tier
         self.device = resolve_device(device)
         self.frontend = Frontend(cfg)
         self.audio = StereoPath(cfg, pll_tier) if stereo else MonoPath(cfg)
-        self.rds_path = RdsPath(cfg, pll_tier) if rds else None
+        self.rds_path = (RdsPath(cfg, pll_tier, timing=rds_timing)
+                         if rds else None)
         self.if_bank = (make_bank([self.audio.pilot_fir, self.audio.band_fir,
                                    self.rds_path.band_fir])
                         if stereo and rds else None)
@@ -117,6 +122,24 @@ class Receiver(nn.Module):
                              rds_bits=bits, rds_nbits=n_bits,
                              rds_clean=clean)
         return ReceiverState(f_state, a_state, r_state), out
+
+    @torch.no_grad()
+    def run_blocks(self, state: ReceiverState, iq_blocks: torch.Tensor):
+        """Block mode: one ``step`` per block. iq_blocks (C, B,
+        2*block_size_iq) uint8. Returns (final_state, ReceiverOutput) with
+        every output stacked on a block axis after C, e.g. left
+        (C, B, audio_block), rds_bits (C, B, max_bits), rds_nbits (C, B)."""
+        if iq_blocks.ndim != 3 or iq_blocks.shape[1] == 0:
+            raise ValueError(f"iq_blocks must be (C, B, n) with B >= 1, got "
+                             f"{tuple(iq_blocks.shape)}")
+        outs = []
+        for b in range(iq_blocks.shape[1]):
+            state, out = self.step(state, iq_blocks[:, b])
+            outs.append(out)
+        stacked = ReceiverOutput(*(
+            None if leaves[0] is None else torch.stack(leaves, dim=1)
+            for leaves in zip(*outs)))
+        return state, stacked
 
     def run_segment(self, state: ReceiverState, iq_segment: torch.Tensor):
         """Segment mode: nb blocks per channel as ONE contiguous pass.

@@ -9,8 +9,10 @@ from real_time_sdr_tpu_torch.ops.cuda.chan_epilogue import chan_epilogue
 from real_time_sdr_tpu_torch.ops.cuda.fir_bank import fir_bank
 from real_time_sdr_tpu_torch.ops.cuda.fir_kernels import fir_decimate
 from real_time_sdr_tpu_torch.ops.cuda.frontend_fused import frontend_fused
+from real_time_sdr_tpu_torch.ops.cuda.pll_scan import pll_scan_kernel
 
-KERNELS = (frontend_fused, fir_bank, chan_epilogue, fir_decimate)
+KERNELS = (frontend_fused, fir_bank, chan_epilogue, fir_decimate,
+           pll_scan_kernel)
 
 __all__ = ["KERNELS", "chan_epilogue", "fir_bank", "fir_decimate",
-           "frontend_fused"]
+           "frontend_fused", "pll_scan_kernel"]

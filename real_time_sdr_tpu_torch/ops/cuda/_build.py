@@ -36,7 +36,8 @@ COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 LINK_FLAGS = (*ARCH, "-shared")
 NVCC_FLAGS = COMPILE_FLAGS + LINK_FLAGS
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
 _SIGNATURES = {
     # xx, taps, y, B, L, nf, K, up, down, T, n_out, stream
     "sdr_fir_bank": ([_P, _P, _P] + [_I] * 8 + [_P], ctypes.c_int),
@@ -49,6 +50,10 @@ _SIGNATURES = {
     "sdr_fir_decimate": ([_P] * 3 + [_I] * 5 + [_P], ctypes.c_int),
     # K, down -> shared-memory bytes of one fir_decimate block
     "sdr_fir_decimate_smem": ([_I, _I], ctypes.c_int),
+    # x, ldx, out, C, N, carry in (6), carry out (6), kp, ki, fr, fsr,
+    # ang_scale, nco_scale, phase_adjust, four_pi, stream
+    "sdr_pll_scan": ([_P, _LL, _P, _I, _I] + [_P] * 12 + [_F] * 2 + [_I] * 2
+                     + [_F] * 4 + [_P], ctypes.c_int),
     "sdr_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -1,15 +1,16 @@
 """RDS symbol slicing and Manchester/differential bit decoding, batched over
 channels.
 
-Port of the comb-CDR half of ``real_time_sdr_tpu/ops/rds_bits.py``:
-``BitSyncState``, ``bit_sync_init``, ``cdr_offset``, ``decode_block_bits``
-and ``decode_segment_bits``. Every state leaf carries a leading channel
+Port of ``real_time_sdr_tpu/ops/rds_bits.py``: the comb CDR
+(``BitSyncState``, ``bit_sync_init``, ``cdr_offset``, ``decode_block_bits``,
+``decode_segment_bits``) and the tracking CDR (``TimingTrack``,
+``timing_init``, ``comb_peak_phase``, ``cdr_tracked``,
+``decode_block_bits_tracked``). Every state leaf carries a leading channel
 axis (the JAX functions take scalar leaves and leave channels to vmap).
 ``decode_segment_bits`` keeps the JAX package's closed-form cross-block
 chains (prefix-XOR of the Manchester parity, fill-forwards of the half
 symbol and the last bit), with gathers for the indexed reads, and is
 bit-identical to decoding block by block with the 5-block warm-up gate.
-The tracking CDR is not ported.
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["BitSyncState", "bit_sync_init", "cdr_offset",
-           "decode_block_bits", "decode_segment_bits"]
+           "decode_block_bits", "decode_segment_bits", "TimingTrack",
+           "timing_init", "comb_peak_phase", "cdr_tracked",
+           "decode_block_bits_tracked"]
 
 _I32 = torch.int32
 
@@ -80,7 +83,6 @@ def decode_segment_bits(clean: torch.Tensor, state: BitSyncState,
     S = max_symbols
     if S * sps < L:
         raise ValueError(f"max_symbols*sps = {S * sps} < block length {L}")
-    dev = clean.device
 
     # --- per-block half: comb CDR + slice --------------------------------
     offset = cdr_offset(clean, sps)                          # (C, nb)
@@ -89,9 +91,23 @@ def decode_segment_bits(clean: torch.Tensor, state: BitSyncState,
     soft = torch.gather(frames, -1, offset[..., None, None].to(torch.int64)
                         .expand(C, nb, S, 1))[..., 0]
     sym = (soft > 0).to(_I32)                                # (C, nb, S)
-    idx_s = torch.arange(S, dtype=_I32, device=dev)
+    idx_s = torch.arange(S, dtype=_I32, device=clean.device)
     n_sym = (L - offset + sps - 1) // sps                    # (C, nb)
     sym = torch.where(idx_s < n_sym[..., None], sym, 0)
+    return _symbols_to_bits(sym, n_sym, state, block_count, max_bits,
+                            warm_after)
+
+
+def _symbols_to_bits(sym: torch.Tensor, n_sym: torch.Tensor,
+                     state: BitSyncState, block_count: torch.Tensor,
+                     max_bits: int, warm_after: int):
+    """Manchester-align + differential-decode sliced symbols, shared by the
+    comb and the tracking CDR: sym (C, nb, S) int32 in {0, 1} with the
+    first n_sym (C, nb) valid, the rest 0. The cross-block chains and the
+    warm-up gate are ``decode_segment_bits``'s."""
+    C, nb, S = sym.shape
+    dev = sym.device
+    idx_s = torch.arange(S, dtype=_I32, device=dev)
 
     # block-0 alignment score: pairs starting even minus pairs starting odd
     x = sym ^ torch.roll(sym, -1, dims=-1)
@@ -189,3 +205,110 @@ def decode_block_bits(rds_clean: torch.Tensor, state: BitSyncState,
         rds_clean[:, None], state, count, sps, max_symbols, max_bits,
         warm_after=-1)
     return bits[:, 0], n_bits[:, 0], new_state
+
+
+class TimingTrack(NamedTuple):
+    """Tracking-CDR carry, one entry per channel: the fractional
+    next-symbol position, the per-symbol period deviation, and the previous
+    block's final sample for interpolation across the block seam."""
+    offset: torch.Tensor  # (C,) f32 next-symbol position from block start
+    rate: torch.Tensor    # (C,) f32 samples-per-symbol deviation from sps
+    last: torch.Tensor    # (C,) f32 previous block's final RRC sample
+    locked: torch.Tensor  # (C,) int32: 0 until the first block sets phase
+
+
+def timing_init(batch: int, device=None) -> TimingTrack:
+    z = torch.zeros((batch,), dtype=torch.float32, device=device)
+    return TimingTrack(offset=z, rate=z.clone(), last=z.clone(),
+                       locked=torch.zeros((batch,), dtype=_I32,
+                                          device=device))
+
+
+def comb_peak_phase(energy: torch.Tensor, sps: int) -> torch.Tensor:
+    """Fractional comb phase in [0, sps): cyclic argmax of the per-phase
+    energy (..., sps), refined by a parabola through the peak and its two
+    neighbours. Ties go to the lowest index, as in jnp.argmax."""
+    m = torch.argmax(energy, dim=-1)
+    em = _pick(energy, m)
+    el = _pick(energy, torch.remainder(m - 1, sps))
+    er = _pick(energy, torch.remainder(m + 1, sps))
+    denom = el - 2.0 * em + er
+    delta = torch.where(
+        torch.abs(denom) > 1e-9,
+        0.5 * (el - er) / torch.where(denom == 0, 1.0, denom), 0.0)
+    return torch.remainder(m.to(torch.float32)
+                           + torch.clamp(delta, -0.5, 0.5), float(sps))
+
+
+def cdr_tracked(rds_clean: torch.Tensor, track: TimingTrack, sps: int,
+                max_symbols: int, phase_gain: float = 0.3,
+                rate_gain: float = 0.08):
+    """Polyphase-interpolating CDR with a drift accumulator, one block per
+    channel: (1) the block's comb |energy| peak, refined to a fractional
+    phase; (2) a PI update of the carried prediction (phase_gain on the
+    wrapped innovation, rate_gain/symbols into the period deviation);
+    (3) linear interpolation at the drifting positions
+    p_k = offset + k*(sps + rate).
+
+    rds_clean (C, L). Returns (sym (C, max_symbols) int32, soft
+    (C, max_symbols) f32, n_sym (C,) int32, new_track)."""
+    L = rds_clean.shape[-1]
+    a = torch.abs(rds_clean)
+    n_comb = L // sps
+    energy = a[..., :n_comb * sps].reshape(
+        a.shape[:-1] + (n_comb, sps)).sum(dim=-2)           # (C, sps)
+    o_meas = comb_peak_phase(energy, sps)
+
+    def wrap_half(d):
+        return torch.remainder(d + 0.5 * sps, sps) - 0.5 * sps
+
+    cold = track.locked == 0
+    o_pred = track.offset
+    e = wrap_half(o_meas - o_pred)
+    o0 = torch.where(cold, o_meas, o_pred + phase_gain * e)
+    nom_syms = float(L) / sps
+    rate = torch.where(cold, 0.0, track.rate + rate_gain * e / nom_syms)
+    # +-2000 ppm capture range; keeps the symbol count per block within the
+    # static max_symbols = ceil(L/sps)
+    rate = torch.clamp(rate, -0.002 * sps, 0.002 * sps)
+    # keep the slice start in [-1, sps+rate): the Manchester parity carry
+    # absorbs a dropped or added boundary symbol
+    period = sps + rate
+    o0 = o0 - period * torch.floor((o0 + 1.0) / period)
+
+    k = torch.arange(max_symbols, dtype=torch.float32,
+                     device=rds_clean.device)
+    p = o0[..., None] + k * period[..., None]
+    valid = p < L - 1
+    pp = torch.clamp(p + 1.0, 0.0, float(L) - 1e-3)
+    i0 = torch.floor(pp).to(_I32)
+    frac = pp - i0.to(torch.float32)
+    # the carried boundary sample lets p in [-1, 0) interpolate across the
+    # seam; the gather is per channel row
+    padded = torch.cat([track.last[..., None], rds_clean], dim=-1)
+    y0 = _take(padded, i0)
+    y1 = _take(padded, torch.clamp(i0 + 1, max=L))
+    soft = torch.where(valid, y0 * (1.0 - frac) + y1 * frac, 0.0)
+    sym = (soft > 0).to(_I32)
+    n_sym = valid.sum(dim=-1, dtype=_I32)
+
+    next_off = o0 + n_sym.to(torch.float32) * period - L
+    new_track = TimingTrack(offset=next_off, rate=rate,
+                            last=rds_clean[..., -1].contiguous(),
+                            locked=torch.ones_like(track.locked))
+    return sym, soft, n_sym, new_track
+
+
+def decode_block_bits_tracked(rds_clean: torch.Tensor, state: BitSyncState,
+                              track: TimingTrack, sps: int, max_symbols: int,
+                              max_bits: int):
+    """``decode_block_bits`` with the tracking CDR in place of the comb, one
+    block per channel, no warm-up gate. rds_clean (C, L). Returns
+    (bits (C, max_bits), n_bits (C,), state, track)."""
+    sym, _soft, n_sym, track = cdr_tracked(rds_clean, track, sps,
+                                           max_symbols)
+    count = torch.zeros_like(n_sym)
+    bits, n_bits, state = _symbols_to_bits(sym[:, None], n_sym[:, None],
+                                           state, count, max_bits,
+                                           warm_after=-1)
+    return bits[:, 0], n_bits[:, 0], state, track

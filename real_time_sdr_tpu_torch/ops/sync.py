@@ -14,6 +14,9 @@ card). The nominal ramp's cos/sin/angle come from period-length host tables
 per-channel scalar phase. The stereo double-angle carrier (nco_scale 2)
 needs no unwrap; the RDS half-angle carrier (nco_scale 0.5) takes the full
 unwrap, whose 2*pi parity sets the carrier's sign.
+
+``PllLoop`` puts tiers 1-2 (``ops/pll.py``) behind the same interface, and
+``carrier_sync`` picks the tier.
 """
 
 from __future__ import annotations
@@ -25,13 +28,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from real_time_sdr_tpu_torch.ops.cuda.pll_scan import pll_scan_kernel
 from real_time_sdr_tpu_torch.ops.fir import PolyFIR, make_bank
-from real_time_sdr_tpu_torch.ops.pll import PllParams
+from real_time_sdr_tpu_torch.ops.pll import (FOUR_PI, PllCarry, PllParams,
+                                             pll_init, pll_newton)
 
-__all__ = ["FeedforwardSync", "FFSyncCarry"]
+__all__ = ["FeedforwardSync", "FFSyncCarry", "PllLoop", "carrier_sync"]
 
 _TWO_PI = 2.0 * math.pi
-_FOUR_PI = 4.0 * math.pi
 HILBERT_TAPS = 63
 
 
@@ -122,7 +126,7 @@ class FeedforwardSync(nn.Module):
         reproduces the canonical branch."""
         th = self.p.trig_angle(start % self.p.period)[..., None]
         s = th + self._tiled(self.ramp_angle, n)
-        return s - torch.where(s >= _FOUR_PI, _FOUR_PI, 0.0)
+        return s - torch.where(s >= FOUR_PI, FOUR_PI, 0.0)
 
     def forward(self, x: torch.Tensor, carry: FFSyncCarry):
         p = self.p
@@ -175,5 +179,40 @@ class FeedforwardSync(nn.Module):
 
         new = FFSyncCarry(in_tail=in_tail,
                           trig=(carry.trig + n) % p.period,
-                          resid=torch.remainder(resid_last, _FOUR_PI))
+                          resid=torch.remainder(resid_last, FOUR_PI))
         return carrier, new
+
+
+class PllLoop(nn.Module):
+    """Tier 1 (the ``pll_scan`` kernel's wrapper) or tier 2 (``pll_newton``)
+    behind the tier-3 synchronizer's interface: ``loop.init(batch)`` and
+    ``loop(x, carry) -> (carrier, carry)``."""
+
+    def __init__(self, p: PllParams, pll_tier: int):
+        super().__init__()
+        if pll_tier not in (1, 2):
+            raise ValueError(f"PllLoop runs tier 1 or 2, got {pll_tier!r}")
+        self.p = p
+        self.tier = pll_tier
+        # empty buffer: follows .to(device), so init() knows the device
+        self.register_buffer("_anchor", torch.zeros(0), persistent=False)
+
+    def init(self, batch: int) -> PllCarry:
+        return pll_init(batch, self._anchor.device)
+
+    def forward(self, x: torch.Tensor, carry: PllCarry):
+        fn = pll_scan_kernel if self.tier == 1 else pll_newton
+        return fn(x, carry, self.p)
+
+
+def carrier_sync(p: PllParams, pll_tier: int,
+                 smooth_taps: int = 65) -> nn.Module:
+    """The carrier synchronizer of a tier: 1 the exact loop, 2 its Newton
+    twin (``PllLoop``), 3 ``FeedforwardSync``. Each has ``init(batch)`` and
+    is called as ``sync(x, carry) -> (carrier, carry)``."""
+    if pll_tier == 3:
+        return FeedforwardSync(p, smooth_taps=smooth_taps)
+    if pll_tier in (1, 2):
+        return PllLoop(p, pll_tier)
+    raise ValueError(f"pll_tier must be 1 (exact loop), 2 (Newton) or 3 "
+                     f"(feedforward); got {pll_tier!r}")

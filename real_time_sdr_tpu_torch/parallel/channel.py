@@ -5,7 +5,8 @@ The receiver already batches channels natively (every tensor has a leading
 channel axis), so the bank is a thin layer that ties the receiver to the
 wideband frontends:
 
-    bank = ChannelBank(Receiver(0, stereo=True, rds=True, device="cuda"), 64)
+    rx = Receiver(0, stereo=True, rds=True, pll_tier=3, device="cuda")
+    bank = ChannelBank(rx, 64)
     fe = make_wideband_frontend(cfg, wide_fs, offsets).to("cuda")
     state, fstate = bank.init_state(), fe.init_state()
     state, out, fstate = bank.run_wideband_u8(state, fe, raw_u8, fstate)

@@ -1,4 +1,5 @@
-"""Carried state across the two packages: numpy <-> the port's tensors.
+"""Carried state across the two packages: numpy <-> the port's tensors,
+and checkpoint files that either package resumes from.
 
 The port's state classes carry the JAX package's class names, field names,
 shapes and dtypes. Receiver states have a leading channel axis on every
@@ -11,6 +12,14 @@ state)``) converts field by field:
     state = state_from_numpy(jax_state_np, device="cuda")
     ...
     back = state_to_numpy(state)     # the port's classes, numpy leaves
+
+``save_state`` / ``load_state`` write and read the JAX package's ``.npz``
+layout (``real_time_sdr_tpu/utils/state.py``): one array per leaf, keys
+``leaf_0 ...`` in ``jax.tree_util`` flatten order (NamedTuple fields in
+order, ``None`` leaves dropped), the leaves' own dtypes, and a
+``__treedef__`` entry that neither loader reads back. A state saved with
+the same shapes as a JAX state (e.g. the single-station CLI's, saved
+without its channel axis) loads with JAX's ``load_state`` and vice versa.
 """
 
 from __future__ import annotations
@@ -25,14 +34,17 @@ from real_time_sdr_tpu_torch.models.rds import RdsState
 from real_time_sdr_tpu_torch.models.receiver import ReceiverState
 from real_time_sdr_tpu_torch.models.wideband_frontend import \
     FusedWidebandState
-from real_time_sdr_tpu_torch.ops.rds_bits import BitSyncState
+from real_time_sdr_tpu_torch.ops.pll import PllCarry
+from real_time_sdr_tpu_torch.ops.rds_bits import BitSyncState, TimingTrack
 from real_time_sdr_tpu_torch.ops.sync import FFSyncCarry
 
-__all__ = ["map_state", "state_from_numpy", "state_to_numpy"]
+__all__ = ["map_state", "state_from_numpy", "state_to_numpy", "save_state",
+           "load_state"]
 
 _CLASSES = {cls.__name__: cls for cls in (
     ReceiverState, FrontendState, MonoState, StereoState, RdsState,
-    FFSyncCarry, BitSyncState, ChannelizerState, FusedWidebandState)}
+    FFSyncCarry, PllCarry, BitSyncState, TimingTrack, ChannelizerState,
+    FusedWidebandState)}
 
 
 def map_state(tree, leaf_fn):
@@ -65,3 +77,59 @@ def state_from_numpy(tree, device: str | torch.device = "cpu"):
 def state_to_numpy(state):
     """The port's state -> the same classes with numpy leaves."""
     return map_state(state, lambda t: t.detach().cpu().numpy())
+
+
+def _leaves(tree) -> list:
+    """Array leaves in jax.tree_util flatten order (None dropped)."""
+    if tree is None:
+        return []
+    if getattr(tree, "_fields", None) is None:
+        return [tree]
+    return [leaf for child in tree for leaf in _leaves(child)]
+
+
+def _structure(tree) -> str:
+    if tree is None:
+        return "None"
+    if getattr(tree, "_fields", None) is None:
+        return "*"
+    return f"{type(tree).__name__}({','.join(map(_structure, tree))})"
+
+
+def _npz_path(path: str) -> str:
+    # np.savez appends ".npz" to a path without it; both functions agree
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def save_state(path: str, state) -> None:
+    """Write a state tree to an ``.npz`` file in the JAX package's layout."""
+    arrays = {f"leaf_{i}": leaf.detach().cpu().numpy()
+              for i, leaf in enumerate(_leaves(state))}
+    arrays["__treedef__"] = np.frombuffer(_structure(state).encode(),
+                                          dtype=np.uint8)
+    np.savez(_npz_path(path), **arrays)
+
+
+def load_state(path: str, like):
+    """Read a state written by either package's ``save_state``. ``like``
+    gives the tree, shapes, dtypes and device (e.g. ``rx.init_state(1)``);
+    raises ``ValueError`` when the file's leaves do not match it."""
+    ref = _leaves(like)
+    with np.load(_npz_path(path)) as data:
+        n = sum(1 for k in data.files if k.startswith("leaf_"))
+        if n != len(ref):
+            raise ValueError(f"checkpoint {path} holds {n} state leaves, "
+                             f"the receiver's state has {len(ref)}")
+        loaded = []
+        for i, r in enumerate(ref):
+            arr = data[f"leaf_{i}"]
+            if arr.shape != tuple(r.shape):
+                raise ValueError(f"state leaf {i}: checkpoint shape "
+                                 f"{arr.shape} != {tuple(r.shape)}")
+            t = torch.from_numpy(np.array(arr))
+            if t.dtype != r.dtype:
+                raise ValueError(f"state leaf {i}: checkpoint dtype "
+                                 f"{arr.dtype} != {r.dtype}")
+            loaded.append(t.to(r.device))
+    it = iter(loaded)
+    return map_state(like, lambda _: next(it))

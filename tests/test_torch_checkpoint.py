@@ -1,0 +1,161 @@
+"""Checkpoints that cross between the packages: the port's ``save_state`` /
+``load_state`` and its CLI's ``--checkpoint`` against the JAX package's
+``utils/state.py`` and CLI.
+
+- A JAX state saved after 4 blocks resumes in the port's CLI, whose blocks
+  5-8 match JAX's own blocks 5-8 (> 60 dB, the chain gate).
+- A state the port's CLI saved loads with JAX's ``load_state(path,
+  rx.init_state())`` and continues as an uninterrupted JAX run (> 60 dB).
+- The ``.rds.json`` framer sidecar round-trips both ways, and the file's
+  keys, shapes and dtypes equal those of a JAX file of the same receiver.
+- A file whose leaves do not fit the receiver raises ``ValueError`` (the
+  CLI then warns and starts fresh).
+"""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from real_time_sdr_tpu.models.rds_framing import RdsFramer as JRdsFramer
+from real_time_sdr_tpu.models.receiver import Receiver as JReceiver
+from real_time_sdr_tpu.utils import state as jstate
+from real_time_sdr_tpu.utils import synth as jsynth
+from real_time_sdr_tpu.utils.audio import stereo_pcm as jstereo_pcm
+from real_time_sdr_tpu_torch import cli
+from real_time_sdr_tpu_torch.models.receiver import Receiver
+from real_time_sdr_tpu_torch.utils import state as tstate
+
+
+def _snr(ref, y):
+    ref = np.asarray(ref, np.float64)
+    e = np.asarray(y, np.float64) - ref
+    return 10 * np.log10(np.sum(ref ** 2) / max(np.sum(e ** 2), 1e-30))
+
+
+@pytest.fixture(scope="module")
+def capture(tmp_path_factory):
+    """8 blocks of one station, and the two 4-block halves as files."""
+    cfg = JReceiver(0).cfg
+    iq, _ = jsynth.station_iq(cfg, 8, ps_name="CKPT-RUN", pi=0x4321, pty=7)
+    d = tmp_path_factory.mktemp("ckpt")
+    half = 4 * 2 * cfg.block_size_iq
+    iq[:half].tofile(d / "first.raw")
+    iq[half:].tofile(d / "second.raw")
+    return iq, half, d
+
+
+def _jax_blocks(jrx, state, iq):
+    """JAX per-block run (the CLI's serving shape): (state, stereo PCM)."""
+    step = jax.jit(jrx.step)
+    blocks = iq.reshape(-1, 2 * jrx.cfg.block_size_iq)
+    pcm = []
+    for blk in blocks:
+        state, out = step(state, jnp.asarray(blk))
+        pcm.append(np.asarray(jstereo_pcm(out.left, out.right)))
+    return state, np.concatenate(pcm)
+
+
+def _cli(args, inp, out):
+    return cli.main(["--cpu", *args, "--input", str(inp), "--output",
+                     str(out)])
+
+
+def test_jax_checkpoint_resumes_in_port_cli(capture, tmp_path, capsys):
+    iq, half, d = capture
+    jrx = JReceiver(0, stereo=True, pll_tier=1)
+    st, _ = _jax_blocks(jrx, jrx.init_state(), iq[:half])
+    path = str(tmp_path / "jax_state.npz")
+    jstate.save_state(path, st)
+    _, ref = _jax_blocks(jrx, st, iq[half:])
+    assert _cli(["0", "s", "--checkpoint", path], d / "second.raw",
+                tmp_path / "out.pcm") == 0
+    assert "resumed state from" in capsys.readouterr().err
+    got = np.fromfile(tmp_path / "out.pcm", "<i2")
+    assert got.shape == ref.shape
+    assert _snr(ref, got) > 60.0
+
+
+def test_port_checkpoint_resumes_in_jax(capture, tmp_path, capsys):
+    iq, half, d = capture
+    path = str(tmp_path / "port_state")       # the .npz suffix is added
+    assert _cli(["0", "s", "--checkpoint", path], d / "first.raw",
+                tmp_path / "a.pcm") == 0
+    assert "saved state to" in capsys.readouterr().err
+    jrx = JReceiver(0, stereo=True, pll_tier=1)
+    like = jrx.init_state()
+    st = jstate.load_state(path, like)
+    _, got = _jax_blocks(jrx, st, iq[half:])
+    _, ref = _jax_blocks(jrx, jrx.init_state(), iq)
+    assert _snr(ref[ref.shape[0] // 2:], got) > 60.0
+    # keys, shapes and dtypes equal a JAX file of the same receiver
+    jpath = str(tmp_path / "jax.npz")
+    jstate.save_state(jpath, st)
+    with np.load(path + ".npz") as a, np.load(jpath) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            if k != "__treedef__":
+                assert a[k].shape == b[k].shape and a[k].dtype == b[k].dtype
+
+
+def test_rds_sidecar_round_trips(capture, tmp_path, capsys):
+    """A JAX state + framer sidecar resume in the port's CLI; what the port
+    writes back loads into JAX's framer unchanged."""
+    iq, half, d = capture
+    jrx = JReceiver(0, stereo=True, rds=True, pll_tier=3)
+    st, out = jax.jit(jrx.run_segment)(jrx.init_state(),
+                                       jnp.asarray(iq[:half]))
+    path = str(tmp_path / "r.npz")
+    jstate.save_state(path, st)
+    jfr = JRdsFramer()
+    jfr.feed((np.arange(300) % 3 == 0).astype(np.int32))  # any bits
+    with open(path + ".rds.json", "w") as f:
+        json.dump({"kind": "single", "framer": jfr.state_dict()}, f)
+    assert _cli(["0", "r", "--pll-tier", "3", "--checkpoint", path],
+                d / "second.raw", tmp_path / "r.pcm") == 0
+    err = capsys.readouterr().err
+    assert "resumed state from" in err
+    assert "resumed RDS framer from" in err
+    with open(path + ".rds.json") as f:
+        back = json.load(f)
+    assert back["kind"] == "single"
+    fr2 = JRdsFramer()
+    fr2.load_state_dict(back["framer"])
+    assert json.loads(json.dumps(fr2.state_dict())) == back["framer"]
+    st2 = jstate.load_state(path, jrx.init_state())
+    assert int(st2.rds.block_count) == 8
+
+
+def test_save_load_round_trip_and_mismatch(tmp_path, capsys):
+    rx = Receiver(0, stereo=True, rds=True, rds_timing="tracked")
+    state = rx.init_state(2)
+    path = str(tmp_path / "s.npz")
+    tstate.save_state(path, state)
+    back = tstate.load_state(path, rx.init_state(2))
+    for a, b in zip(jax.tree_util.tree_leaves(state),
+                    jax.tree_util.tree_leaves(back)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert type(back.rds.track).__name__ == "TimingTrack"
+    with pytest.raises(ValueError, match="shape"):
+        tstate.load_state(path, rx.init_state(1))
+    with pytest.raises(ValueError, match="leaves"):   # comb: no track
+        tstate.load_state(path, Receiver(0, stereo=True, rds=True)
+                          .init_state(2))
+    # a float64 phase or an int64 counter is not the JAX layout
+    for field, dtype in (("phase", torch.float64), ("trig", torch.int64)):
+        pll = state.audio.pll
+        wrong = state._replace(audio=state.audio._replace(pll=pll._replace(
+            **{field: getattr(pll, field).to(dtype)})))
+        bad = str(tmp_path / f"bad_{field}.npz")
+        tstate.save_state(bad, wrong)
+        with pytest.raises(ValueError, match="dtype"):
+            tstate.load_state(bad, rx.init_state(2))
+    # the CLI never dies on an incompatible checkpoint: it starts fresh
+    raw = tmp_path / "one.raw"
+    np.full(2 * JReceiver(0).cfg.block_size_iq, 128, np.uint8).tofile(raw)
+    assert _cli(["0", "m", "--checkpoint", path], raw,
+                tmp_path / "m.pcm") == 0
+    assert "could not resume DSP state" in capsys.readouterr().err

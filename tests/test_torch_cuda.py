@@ -14,7 +14,12 @@ eager does), the direct-form decimating FIR > 110 dB, and the receiver on
 the card against its own CPU run: audio > 60 dB, RDS bits equal. The
 two-stage wideband path's u8 station streams agree with the CPU run within
 1 LSB on < 1 % of bytes (the fold matmul sums in another order on the
-card).
+card). The sequential PLL against its plain version run on the same card
+tensors: carrier > 80 dB, counter exact, float carry within 1e-4 (the
+kernel rounds every step as torch's separate elementwise kernels do, so
+it is expected bit-identical; the bound leaves room for a math library
+that differs by an ulp). Modes 1-3: the mode-3 frontend (down 3) > 90 dB
+and the six FIR-bank geometries modes 1-3 add > 110 dB.
 """
 
 import math
@@ -34,6 +39,9 @@ from real_time_sdr_tpu_torch.ops.cuda.fir_bank import (TILED_TILE,
 from real_time_sdr_tpu_torch.ops.cuda.fir_kernels import fir_decimate_plain
 from real_time_sdr_tpu_torch.ops.cuda.frontend_fused import frontend_plain
 from real_time_sdr_tpu_torch.ops.fir import PolyFIR, make_bank
+from real_time_sdr_tpu_torch.ops.cuda import pll_scan_kernel
+from real_time_sdr_tpu_torch.ops.pll import (PllCarry, PllParams, pll_init,
+                                             pll_scan_plain)
 from real_time_sdr_tpu_torch.utils import synth
 from real_time_sdr_tpu_torch.parallel.channel import ChannelBank
 from real_time_sdr_tpu_torch.utils.state import map_state
@@ -253,3 +261,89 @@ def test_two_stage_wideband_on_card_matches_cpu(card):
             assert _snr(rout.left[c], out.left[c]) > 60.0
     assert chan_epilogue.launches > before[0]
     assert frontend_fused.launches > before[1]
+
+
+@pytest.mark.parametrize("n", [1, 7, 7350])
+@pytest.mark.parametrize("rows", [1, 32, 1000])
+def test_pll_scan_kernel_matches_plain(card, rows, n):
+    """Random pilots (row 0 all zeros: the signed-zero detector) from a
+    carry with random phases, counters and feedback signs."""
+    rng = np.random.default_rng(rows * 10 + n)
+    p = PllParams(freq=19_000, fs=240_000, nco_scale=2.0, norm_bw=0.01)
+    t = np.arange(n) / p.fs
+    x = np.cos(2 * np.pi * 19_030.0 * t + rng.uniform(0, 6, (rows, 1)))
+    x = (x + 0.05 * rng.standard_normal(x.shape)).astype(np.float32)
+    x[0] = 0.0
+    ang = rng.uniform(-np.pi, np.pi, rows)
+    carry = PllCarry(*(torch.from_numpy(a).cuda() for a in (
+        np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32),
+        rng.uniform(-1e-3, 1e-3, rows).astype(np.float32),
+        rng.uniform(0, 12, rows).astype(np.float32),
+        rng.integers(0, p.period, rows).astype(np.int32),
+        rng.uniform(-1, 1, rows).astype(np.float32))))
+    xc = torch.from_numpy(x).cuda()
+    before = pll_scan_kernel.launches
+    got, gc = pll_scan_kernel(xc, carry, p)
+    assert pll_scan_kernel.launches == before + 1
+    ref, rc = pll_scan_plain(xc, carry, p)
+    assert got.shape == ref.shape == (rows, n)
+    assert _snr(ref, got) > 80.0
+    assert torch.equal(gc.trig, rc.trig)
+    for a, b in zip(gc, rc):
+        assert (a.double() - b.double()).abs().max().item() < 1e-4
+
+
+def test_pll_tier1_receiver_on_card_matches_cpu(card):
+    """The default-tier receiver launches the PLL kernel; 2 blocks against
+    the CPU run from the same state: audio > 60 dB."""
+    _, iq = card
+    rx = Receiver(0, stereo=True, rds=True, device="cuda")
+    ref = Receiver(0, stereo=True, rds=True)
+    x = iq[: 2 * 2 * rx.cfg.block_size_iq][None]
+    before = pll_scan_kernel.launches
+    _, out = rx.run_segment(rx.init_state(1), x.cuda())
+    assert pll_scan_kernel.launches == before + 2        # stereo + RDS
+    _, rout = ref.run_segment(ref.init_state(1), x)
+    assert _snr(rout.left[0], out.left[0]) > 60.0
+    assert _snr(rout.right[0], out.right[0]) > 60.0
+
+
+def test_mode3_frontend_matches_plain(card):
+    rx = Receiver(3, device="cuda")
+    fe = rx.frontend
+    assert fe.rf_fir.down == 3
+    iq, _ = synth.station_iq(rx.cfg, 2)
+    x = torch.from_numpy(iq).cuda()
+    xx = torch.cat([fe.init_state(2).iq_tail, torch.stack([x, x.flip(0)])],
+                   dim=-1)
+    pi = torch.tensor([0.1, -0.3], device="cuda")
+    pq = torch.tensor([0.2, 0.4], device="cuda")
+    dk, ik, qk = frontend_fused(xx, fe.rf_fir, pi, pq)
+    dp, ip, qp = frontend_plain(xx, fe.rf_fir, pi, pq)
+    assert dk.shape == dp.shape == (2, 2 * rx.cfg.if_block)
+    assert _snr(dp, dk) > 90.0
+    assert (ik - ip).abs().max().item() < 1e-4
+
+
+# the audio and RDS baseband resamplers of modes 1-3: (mode, site)
+MODE_SITES = [(m, s) for m in (1, 2, 3)
+              for s in ("audio.resamp_bank", "rds_path.baseband_bank")]
+
+
+@pytest.mark.parametrize("mode, site", MODE_SITES)
+def test_fir_bank_mode_sites_match_plain(card, mode, site):
+    rx = Receiver(mode, stereo=True, rds=True, pll_tier=3, device="cuda")
+    bank = rx
+    for name in site.split("."):
+        bank = getattr(bank, name)
+    g = bank.geometry
+    assert kernel_body(g) == "general"
+    rng = np.random.default_rng(mode)
+    rows = 4 if "audio" in site else 6
+    xx = torch.from_numpy(rng.standard_normal(
+        (rows, bank.tail_len + 2 * rx.cfg.if_block)).astype(
+            np.float32)).cuda()
+    yk = fir_bank(xx, bank.taps, bank.w, g)
+    yp = fir_bank_plain(xx, bank.w, g)
+    assert yk.shape == yp.shape
+    assert _snr(yp, yk) > 110.0

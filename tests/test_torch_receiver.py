@@ -208,12 +208,18 @@ def test_framer_copy_events_identical(slice_run):
 
 
 def test_port_runs_without_jax():
-    """Importing the port and running a CPU run_segment, and one wideband
-    segment through both wideband frontends and the channel bank, loads no
-    jax (a subprocess: this test process already imported jax)."""
+    """Importing the port and running a CPU run_segment, one tier-1 block,
+    one wideband segment through both wideband frontends and the channel
+    bank, and the CLI on one block, loads no jax (a subprocess: this test
+    process already imported jax)."""
     code = textwrap.dedent("""
+        import os
         import sys
+        import tempfile
         import torch
+        from real_time_sdr_tpu_torch import cli
+        from real_time_sdr_tpu_torch.ops import pll, sync
+        from real_time_sdr_tpu_torch.ops.cuda import pll_scan
         from real_time_sdr_tpu_torch.models.receiver import Receiver
         from real_time_sdr_tpu_torch.models.rds_framing import RdsFramer
         from real_time_sdr_tpu_torch.models.channelizer import Channelizer
@@ -226,6 +232,19 @@ def test_port_runs_without_jax():
         st, out = rx.run_segment(rx.init_state(1),
                                  torch.from_numpy(iq)[None])
         assert out.left.shape == (1, 2 * rx.cfg.audio_block)
+        rx1 = Receiver(0, stereo=True, rds=True)      # tier 1, the default
+        assert isinstance(rx1.audio.sync, sync.PllLoop)
+        st1, out1 = rx1.step(rx1.init_state(1),
+                             torch.from_numpy(iq[:iq.shape[0] // 2])[None])
+        assert torch.isfinite(out1.left).all()
+        assert isinstance(st1.rds.pll, pll.PllCarry)
+        assert pll_scan.pll_scan_kernel.launches == 0     # CPU: plain
+        with tempfile.TemporaryDirectory() as d:
+            raw, pcm = os.path.join(d, "in.raw"), os.path.join(d, "out.pcm")
+            iq[:iq.shape[0] // 2].tofile(raw)
+            assert cli.main(["0", "m", "--cpu", "--input", raw,
+                             "--output", pcm]) == 0
+            assert os.path.getsize(pcm) == 2 * rx.cfg.audio_block
         wide_fs, offs = 4 * rx.cfg.rf_fs, [-300_000, 600_000]
         iw, qw, _ = synth.wideband_iq(rx.cfg, wide_fs, [
             dict(offset_hz=f) for f in offs], 1)
