@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one card and check them.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--sass DIR] [--kernels]
 
 Run from the root of a checkout, on a machine with one NVIDIA Hopper card
 and the CUDA toolkit. It imports no jax. Phases, each of which exits
@@ -20,11 +20,18 @@ non-zero on failure:
    the direct-form decimating FIR > 110 dB at the audio-rail geometry,
    beside the FIR bank at the same geometry; the sequential PLL
    (``pll_scan``, the tier-1 carrier loop) > 80 dB against its plain
-   version run on the same card tensors, with an equal carry, at 32
-   channels x 1 mode-0 block with the stereo and RDS loop parameters, from
-   a cold carry and from a carry locked over 12 kernel blocks (it prints
-   whether the two are bit-identical); the tier-2 Newton twin > 40 dB
-   against the kernel over 2 blocks, with its time;
+   version run on the same card tensors, with ``trig`` equal and the
+   float carry within 1e-4 (``phase`` modulo 4*pi), at 32 channels x 1
+   mode-0 block with the stereo and RDS loop parameters, from a cold carry
+   and from a carry locked over 12 kernel blocks (it prints whether the
+   two are bit-identical: the kernel's detector is the wrapped one, so
+   they need not be), with its time at 1, 32 and 1,000 rows; the tier-2
+   Newton twin > 40 dB against the kernel over 2 blocks, with its time.
+   Beside each kernel's time stand its bound (the larger of its bytes,
+   each input read and each output written once, over 3.35 TB/s and its
+   f32 operations over 67 TFLOP/s, the H100 SXM data-sheet peaks) and,
+   where one PyTorch call computes the same function (``conv1d`` for a
+   FIR without upsampling), that call's time;
 4. mode-0 path: a synthetic station tiled to 32 channels (distinct time
    shifts) through ``Receiver(0, stereo=True, rds=True, pll_tier=3,
    device="cuda").run_segment`` over three chained 12-block segments; the
@@ -70,6 +77,10 @@ Each path's kernel counts are set to 0 just before it and read just after.
 The last two lines are the kernels' JSON and the device JSON.
 ``--profile DIR`` also writes a torch.profiler table of one warm segment
 of each path to DIR and prints the segment's FIR-bank device time.
+``--sass DIR`` writes ``cuobjdump -sass`` of the built library's
+``pll_scan`` and ``frontend_fused`` kernels to DIR. ``--kernels`` stops
+after phase 3 (build and kernel checks): a short first run of a changed
+kernel; it prints no result line.
 """
 
 from __future__ import annotations
@@ -88,6 +99,13 @@ CH, BLOCKS, SEGMENTS = 32, 12, 3
 CLI_BLOCKS = 192      # the CLI capture: 5.88 s of radio at mode 0
 PS, PI, PTY = "H100 FM ", 0x3A5C, 5
 WB_STATIONS, WB_MULT, WB_SLOTS = 64, 8, (3, 32, 62)
+# H100 SXM data-sheet peaks behind every bound: HBM bytes/s and f32 FLOP/s
+# outside the tensor cores (no kernel of the port uses the tensor cores).
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# pll_scan's serial floor: dependent f32 operations of one sample's step
+# (counted in the SASS of csrc/pll_scan.cu's unrolled body) times the
+# 4-cycle latency of a dependent FADD/FMUL/FFMA/FSEL on sm_90.
+PLL_CHAIN_OPS, F32_LATENCY_CYCLES = 11, 4
 
 
 def fail(msg: str) -> None:
@@ -117,6 +135,14 @@ def device_ms(torch, fn, reps: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of bytes over the
+    memory rate and f32 operations over the FMA rate, in ms."""
+    t_b, t_f = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    return dict(bound_ms=max(t_b, t_f),
+                bound_by="bytes" if t_b >= t_f else "operations")
 
 
 def band_power(np, x, fs, f, width=30.0):
@@ -180,6 +206,12 @@ def main() -> None:
     ap.add_argument("--profile", metavar="DIR",
                     help="write a torch.profiler table of one warm segment "
                     "of each path into this directory")
+    ap.add_argument("--sass", metavar="DIR",
+                    help="write cuobjdump -sass of the pll_scan and "
+                    "frontend_fused kernels into this directory")
+    ap.add_argument("--kernels", action="store_true",
+                    help="stop after the kernel checks (phase 3); prints "
+                    "no result line")
     args = ap.parse_args()
 
     import numpy as np
@@ -226,6 +258,11 @@ def main() -> None:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0].strip()
     print(card)
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    sm_mhz = float(clk.stdout.strip().splitlines()[0])
+    print(f"max SM clock {sm_mhz:.0f} MHz")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, "
           f"device {torch.cuda.get_device_name(0)}, "
@@ -243,6 +280,21 @@ def main() -> None:
         for line in log.read_text().splitlines():
             if "registers" in line or "Compiling entry" in line:
                 print(f"  ptxas: {line.strip()}")
+
+    if args.sass:
+        os.makedirs(args.sass, exist_ok=True)
+        cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+        res = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                             capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            fail(f"cuobjdump failed: {res.stderr.strip()}")
+        for key in ("pll_scan", "frontend_fused"):
+            parts = [f for f in res.stdout.split("\t\tFunction : ")[1:]
+                     if key in f.split("\n", 1)[0]]
+            out = os.path.join(args.sass, f"{key}.sass")
+            with open(out, "w") as f:
+                f.write(f"{card}\n" + "\n\t\tFunction : ".join([""] + parts))
+            print(f"sass of {len(parts)} {key} kernel(s) -> {out}")
 
     # -- fixture: one station, 36 blocks, tiled to 32 shifted channels -------
     rx = Receiver(0, stereo=True, rds=True, pll_tier=3, device=dev)
@@ -272,15 +324,24 @@ def main() -> None:
         xx, fe.rf_fir.taps, fe.rf_fir.down, pi0, pq0))
     fe_plain_ms = device_ms(torch, lambda: frontend_plain(
         xx, fe.rf_fir, pi0, pq0))
+    def frontend_bound(xx_, dk_, k_taps_):
+        """Bytes: the u8 rows in, the f32 demod out; operations: K FMAs
+        for I and for Q per output."""
+        return bound(xx_.numel() + 4 * dk_.numel(),
+                     2 * 2 * k_taps_ * dk_.numel())
+
+    fe_bound = frontend_bound(xx, dk, fe.rf_fir.taps.shape[0])
     print(f"kernel frontend_fused: ({CH}, {xx.shape[1]}) u8 -> "
           f"{tuple(dk.shape)}: SNR {fe_snr:.1f} dB vs plain, max abs err "
           f"{fe_err:.3g}, prev err {prev_err:.3g}; kernel {fe_ms:.4f} ms, "
-          f"plain {fe_plain_ms:.4f} ms")
+          f"plain {fe_plain_ms:.4f} ms, bound {fe_bound['bound_ms']:.4f} ms "
+          f"({fe_bound['bound_by']}), no library call")
     if not (fe_snr > 90.0 and prev_err < 1e-4):
         fail(f"frontend kernel disagrees with its plain version "
              f"({fe_snr:.1f} dB, prev err {prev_err:.3g})")
     kernels[frontend_fused.name] = dict(max_abs_err=fe_err, ms=fe_ms,
-                                        plain_ms=fe_plain_ms)
+                                        plain_ms=fe_plain_ms, **fe_bound,
+                                        library_ms=None)
     del xx, dk, dp
 
     n_if = cfg.if_block * BLOCKS
@@ -309,32 +370,64 @@ def main() -> None:
         t_p = device_ms(torch, lambda: fir_bank_plain(xb, bank.w, g))
         body = kernel_body(g)
         gflop = 2 * rows * yk.shape[-1] * bank.nf * g.T / 1e9   # useful
+        bnd = bound(4 * (xb.numel() + yk.numel() + bank.taps.numel()),
+                    gflop * 1e9)
+        # one library call computes a FIR without upsampling: conv1d with
+        # the filters as output channels (flipped taps, stride = down)
+        t_l = None
+        if g.up == 1:
+            w_l = bank.taps.flip(-1)[:, None, :].contiguous()
+            xl = xb[:, None, :]
+            yl = torch.nn.functional.conv1d(xl, w_l, stride=g.down)
+            lib_snr = snr_db(yp, yl[..., :yk.shape[-1]])
+            if not lib_snr > 100.0:
+                fail(f"fir_bank[{name}]: the conv1d yardstick computes "
+                     f"another function ({lib_snr:.1f} dB)")
+            t_l = device_ms(torch, lambda: torch.nn.functional.conv1d(
+                xl, w_l, stride=g.down))
         print(f"kernel fir_bank[{name}]: rows {rows}, n {n}, nf {bank.nf}, "
               f"K {g.num_taps}, {g.up}/{g.down} -> {tuple(yk.shape)}: "
               f"SNR {s:.1f} dB, max abs err {err:.3g}; body {body}, "
               f"{gflop:.4f} GFLOP useful; kernel {t_k:.4f} ms "
               f"({gflop / t_k:.2f} TFLOP/s), plain {t_p:.4f} ms "
-              f"({gflop / t_p:.2f} TFLOP/s)")
+              f"({gflop / t_p:.2f} TFLOP/s), bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}), conv1d "
+              + (f"{t_l:.4f} ms" if t_l is not None else "n/a (up > 1)"))
         if not s > 110.0:
             fail(f"fir_bank[{name}] disagrees with its plain version "
                  f"({s:.1f} dB)")
-        return t_k, t_p, err, body
+        return t_k, t_p, err, body, dict(**bnd, library_ms=t_l)
 
     bank_err, bank_ms, bank_plain_ms, bank_sites = 0.0, 0.0, 0.0, {}
     for name, bank, rows, n in sites:
-        t_k, t_p, err, body = check_site(name, bank, rows, n)
+        t_k, t_p, err, body, extra = check_site(name, bank, rows, n)
         bank_err = max(bank_err, err)
         bank_ms += t_k
         bank_plain_ms += t_p
-        bank_sites[name] = dict(ms=t_k, plain_ms=t_p, body=body)
-    kernels[fir_bank.name] = dict(max_abs_err=bank_err, ms=bank_ms,
-                                  plain_ms=bank_plain_ms, sites=bank_sites)
+        bank_sites[name] = dict(ms=t_k, plain_ms=t_p, body=body, **extra)
+    # the row's bound is the sum of its sites' bounds; the row has no one
+    # library call (the 247/640 site upsamples), the up = 1 sites have
+    up1 = [v for v in bank_sites.values() if v["library_ms"] is not None]
+    kernels[fir_bank.name] = dict(
+        max_abs_err=bank_err, ms=bank_ms, plain_ms=bank_plain_ms,
+        bound_ms=sum(v["bound_ms"] for v in bank_sites.values()),
+        bound_by=("operations" if sum(
+            v["bound_ms"] for v in bank_sites.values()
+            if v["bound_by"] == "operations") * 2 > sum(
+                v["bound_ms"] for v in bank_sites.values()) else "bytes"),
+        library_ms=None, ms_up1_sites=sum(v["ms"] for v in up1),
+        library_ms_up1_sites=sum(v["library_ms"] for v in up1),
+        sites=bank_sites)
     tiled = [v for v in bank_sites.values() if v["body"] == "tiled"]
     print(f"fir_bank over the {len(sites)} sites of one segment: kernel "
           f"{bank_ms:.4f} ms, plain {bank_plain_ms:.4f} ms; the "
           f"{len(tiled)} tiled sites: kernel "
           f"{sum(v['ms'] for v in tiled):.4f} ms, plain "
-          f"{sum(v['plain_ms'] for v in tiled):.4f} ms")
+          f"{sum(v['plain_ms'] for v in tiled):.4f} ms; bound "
+          f"{kernels['fir_bank']['bound_ms']:.4f} ms; the {len(up1)} sites "
+          f"without upsampling: kernel "
+          f"{kernels['fir_bank']['ms_up1_sites']:.4f} ms, conv1d "
+          f"{kernels['fir_bank']['library_ms_up1_sites']:.4f} ms")
 
     # channelizer epilogue at the 64-station, 12-block, 19.2 MS/s shape:
     # S = 64, R = 16, c = n_out / R frames
@@ -354,15 +447,19 @@ def main() -> None:
     epi_plain_ms = device_ms(torch, lambda: chan_epilogue_plain(
         y, pc, ps, r_n, s_ch, n_out_wb))
     moved = y.numel() * 4 + uk.numel()
+    # 6 f32 operations per complex sample (the rotation), 2 more to quantise
+    epi_bound = bound(moved, 8 * s_ch * n_out_wb)
     print(f"kernel chan_epilogue: y {tuple(y.shape)} f32, R {r_n}, S {s_ch} "
           f"-> {tuple(uk.shape)} u8: byte-equal {torch.equal(uk, up)}, max "
           f"abs err {epi_err} LSB; kernel {epi_ms:.4f} ms "
           f"({moved / epi_ms / 1e9:.2f} TB/s of {moved / 1e6:.1f} MB), "
-          f"plain {epi_plain_ms:.4f} ms")
+          f"plain {epi_plain_ms:.4f} ms, bound {epi_bound['bound_ms']:.4f} "
+          f"ms ({epi_bound['bound_by']}), no library call")
     if not torch.equal(uk, up):
         fail("chan_epilogue kernel is not byte-equal to its plain version")
     kernels[chan_epilogue.name] = dict(max_abs_err=float(epi_err), ms=epi_ms,
-                                       plain_ms=epi_plain_ms)
+                                       plain_ms=epi_plain_ms, **epi_bound,
+                                       library_ms=None)
     del y, uk, up
 
     # direct-form decimating FIR at the audio-rail geometry (64 rails x
@@ -381,24 +478,35 @@ def main() -> None:
     fb_ms = device_ms(torch, lambda: fir_bank.launch(xd, dbank.taps,
                                                      dbank.geometry))
     fb_out = fir_bank.launch(xd, dbank.taps, dbank.geometry)[:, 0]
+    fd_bound = bound(4 * (xd.numel() + dk_.numel() + k_taps),
+                     2 * k_taps * dk_.numel())
+    w_fd = h.flip(0)[None, None, :].contiguous()
+    fd_lib_ms = device_ms(torch, lambda: torch.nn.functional.conv1d(
+        xd[:, None, :], w_fd, stride=down))
     print(f"kernel fir_decimate: ({2 * CH}, {xd.shape[1]}) K {k_taps} down "
           f"{down} -> {tuple(dk_.shape)}: SNR {fd_snr:.1f} dB vs plain, max "
           f"abs err {fd_err:.3g}; kernel {fd_ms:.4f} ms, plain (conv1d) "
           f"{fd_plain_ms:.4f} ms; fir_bank at the same geometry "
           f"{fb_ms:.4f} ms (max abs diff vs fir_decimate "
-          f"{(fb_out - dk_).abs().max().item():.3g})")
+          f"{(fb_out - dk_).abs().max().item():.3g}); bound "
+          f"{fd_bound['bound_ms']:.4f} ms ({fd_bound['bound_by']}), one "
+          f"conv1d call {fd_lib_ms:.4f} ms")
     if not fd_snr > 110.0:
         fail(f"fir_decimate disagrees with its plain version "
              f"({fd_snr:.1f} dB)")
     kernels[fir_decimate.name] = dict(max_abs_err=fd_err, ms=fd_ms,
-                                      plain_ms=fd_plain_ms)
+                                      plain_ms=fd_plain_ms, **fd_bound,
+                                      library_ms=fd_lib_ms)
     del xd, dk_, dp_
 
     def check_pll(label, xk, c0, p, rows, plain_reps):
         """pll_scan on (xk, c0) against its plain version run on the first
-        ``rows`` rows of the same card tensors: SNR > 80 dB and an equal
-        carry (trig exact). Kernel ms: median of 10 launches; plain ms:
-        median of ``plain_reps`` calls, or the one comparison call when 0."""
+        ``rows`` rows of the same card tensors: SNR > 80 dB, trig exact
+        and the float carry within 1e-4 (phase modulo 4*pi). Kernel ms:
+        median of 10 launches; plain ms: median of ``plain_reps`` calls, or
+        the one comparison call when 0. Bound: x read and the carrier
+        written once; about 20 f32 operations per sample. Chain floor: N
+        dependent steps of PLL_CHAIN_OPS operations at the max SM clock."""
         yk, ck = pll_scan_kernel.launch(xk, c0, p)
         cp0 = PllCarry(*(t[:rows] for t in c0))
         a = torch.cuda.Event(enable_timing=True)
@@ -410,25 +518,37 @@ def main() -> None:
         yk, ck = yk[:rows], PllCarry(*(t[:rows] for t in ck))
         s_ = snr_db(yp, yk)
         err = (yk - yp).abs().max().item()
-        cerr = max((u.double() - v.double()).abs().max().item()
-                   for u, v in zip(ck, cp))
+        cerr = 0.0
+        for leaf, u, v in zip(ck._fields, ck, cp):
+            d = (u.double() - v.double()).abs()
+            if leaf == "phase":         # a multiple of 4*pi is no error
+                d = torch.minimum(d, (d - 4.0 * math.pi).abs())
+            cerr = max(cerr, d.max().item())
         same = (torch.equal(yk, yp)
                 and all(torch.equal(u, v) for u, v in zip(ck, cp)))
         t_k = device_ms(torch, lambda: pll_scan_kernel.launch(xk, c0, p))
         t_p = (device_ms(torch, lambda: pll_scan_plain(xk[:rows], cp0, p),
                          reps=plain_reps) if plain_reps else a.elapsed_time(b))
+        bnd = bound(8 * xk.numel() + 48 * xk.shape[0], 20 * xk.numel())
+        floor_ms = (xk.shape[1] * PLL_CHAIN_OPS * F32_LATENCY_CYCLES
+                    / (sm_mhz * 1e3))
         print(f"kernel pll_scan[{label}]: {tuple(xk.shape)}, plain on "
               f"{rows} row(s): SNR {s_:.1f} dB vs plain, max abs err "
               f"{err:.3g}, carry max err {cerr:.3g}, bit-identical {same}; "
-              f"kernel {t_k:.4f} ms, plain {t_p:.2f} ms "
-              f"({max(plain_reps, 1)} call(s), {rows} row(s))")
+              f"kernel {t_k:.4f} ms "
+              f"({t_k * sm_mhz * 1e3 / xk.shape[1]:.1f} cycles per sample "
+              f"at {sm_mhz:.0f} MHz), plain {t_p:.2f} ms "
+              f"({max(plain_reps, 1)} call(s), {rows} row(s)); bound "
+              f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}), chain floor "
+              f"{floor_ms:.4f} ms, no library call")
         if not (s_ > 80.0 and torch.equal(ck.trig, cp.trig)
                 and cerr < 1e-4):
             fail(f"pll_scan[{label}] disagrees with its plain version "
                  f"({s_:.1f} dB, carry err {cerr:.3g})")
         return dict(shape=list(xk.shape), plain_rows=rows, ms=t_k,
                     plain_ms=t_p, snr_db=s_, max_abs_err=max(err, cerr),
-                    bit_identical=same)
+                    bit_identical=same, **bnd, chain_floor_ms=floor_ms,
+                    library_ms=None)
 
     # sequential PLL (the tier-1 carrier loop) at 32 channels x 1 mode-0
     # block, with the stereo (19 kHz, x2) and RDS (114 kHz, x0.5) loops, on
@@ -455,14 +575,29 @@ def main() -> None:
             f"{loop}, cold", blocks[0], pll_init(CH, dev), p, CH, 0)
         pll_cases[f"{loop}_locked"] = check_pll(
             f"{loop}, locked", blocks[12], carry, p, CH, 3)
+    locked = [v for k, v in pll_cases.items() if "locked" in k]
     kernels[pll_scan_kernel.name] = dict(
-        ms=sum(v["ms"] for k, v in pll_cases.items() if "locked" in k),
-        plain_ms=sum(v["plain_ms"] for k, v in pll_cases.items()
-                     if "locked" in k),
-        cases=pll_cases)
+        ms=sum(v["ms"] for v in locked),
+        plain_ms=sum(v["plain_ms"] for v in locked),
+        bound_ms=sum(v["bound_ms"] for v in locked), bound_by="bytes",
+        chain_floor_ms=sum(v["chain_floor_ms"] for v in locked),
+        library_ms=None, cases=pll_cases)
     print(f"pll_scan, both loops of one mode-0 block at {CH} ch (locked): "
           f"kernel {kernels['pll_scan']['ms']:.4f} ms, plain "
-          f"{kernels['pll_scan']['plain_ms']:.2f} ms")
+          f"{kernels['pll_scan']['plain_ms']:.2f} ms, bound "
+          f"{kernels['pll_scan']['bound_ms']:.5f} ms, chain floor "
+          f"{kernels['pll_scan']['chain_floor_ms']:.4f} ms")
+    # flat in the row count: the locked stereo block at 1, 32 and 1,000 rows
+    p_, blocks_ = pilots["stereo"]
+    flat = {}
+    for rows_ in (1, CH, 1000):
+        xr = blocks_[12].repeat(-(-rows_ // CH), 1)[:rows_].contiguous()
+        cr = pll_init(rows_, dev)
+        flat[rows_] = device_ms(
+            torch, lambda: pll_scan_kernel.launch(xr, cr, p_))
+    kernels[pll_scan_kernel.name]["ms_by_rows"] = flat
+    print(f"pll_scan[stereo] ms by rows at N {n_blk}: "
+          + ", ".join(f"{r}: {t:.4f}" for r, t in flat.items()))
     # tier 2 (Newton, plain torch on the card) against the kernel over 2
     # blocks from the carry locked over 11 kernel blocks. (From a cold carry
     # Newton's linearization fails for initial phase errors near pi -- the
@@ -485,6 +620,32 @@ def main() -> None:
             fail(f"tier 2 [{loop}] disagrees with tier 1 "
                  f"({min(snrs2):.1f} dB)")
     del pilots
+    if args.kernels:
+        for mode in (1, 2, 3):      # frontend at the other modes' geometry
+            fe_m = Receiver(mode, device=dev).frontend
+            n_iq = fe_m.tail_len // 2 + BLOCKS * fe_m.cfg.block_size_iq
+            # a constant-envelope carrier with a slow random phase walk
+            ph = torch.cumsum(0.1 * torch.rand((CH, n_iq), device=dev,
+                                               generator=gen) - 0.05, -1)
+            xm = torch.stack([128 + 100 * torch.cos(ph),
+                              128 + 100 * torch.sin(ph)], -1).round().to(
+                                  torch.uint8).reshape(CH, -1)
+            del ph
+            dm = frontend_fused.launch(xm, fe_m.rf_fir.taps,
+                                       fe_m.rf_fir.down, pi0, pq0)[0]
+            sm_ = snr_db(frontend_plain(xm, fe_m.rf_fir, pi0, pq0)[0], dm)
+            tm = device_ms(torch, lambda: frontend_fused.launch(
+                xm, fe_m.rf_fir.taps, fe_m.rf_fir.down, pi0, pq0))
+            bm = frontend_bound(xm, dm, fe_m.rf_fir.taps.shape[0])
+            print(f"kernel frontend_fused[mode {mode}, synthetic carrier]: "
+                  f"down {fe_m.rf_fir.down}, {tuple(xm.shape)} -> "
+                  f"{tuple(dm.shape)}: SNR {sm_:.1f} dB; kernel {tm:.4f} ms, "
+                  f"bound {bm['bound_ms']:.4f} ms ({bm['bound_by']})")
+            if not sm_ > 90.0:
+                fail(f"mode {mode}: frontend kernel disagrees with its "
+                     f"plain version ({sm_:.1f} dB)")
+        print("--kernels: stopping after the kernel checks")
+        return
 
     launches = {k.name: 0 for k in KERNELS}
     by_path, bodies_by_path = {}, {}
@@ -716,14 +877,16 @@ def main() -> None:
             xx, fe.rf_fir.taps, fe.rf_fir.down, pi0m, pq0m))
         t_p = device_ms(torch, lambda: frontend_plain(xx, fe.rf_fir, pi0m,
                                                       pq0m))
+        bnd = frontend_bound(xx, dk, fe.rf_fir.taps.shape[0])
         print(f"kernel frontend_fused[mode {mode}]: down {fe.rf_fir.down}, "
               f"({CH}, {xx.shape[1]}) u8 -> {tuple(dk.shape)}: SNR "
               f"{s_:.1f} dB vs plain, max abs err {err:.3g}; kernel "
-              f"{t_k:.4f} ms, plain {t_p:.4f} ms")
+              f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
         if not s_ > 90.0:
             fail(f"mode {mode}: frontend kernel disagrees with its plain "
                  f"version ({s_:.1f} dB)")
-        fe_modes[mode] = dict(ms=t_k, plain_ms=t_p, snr_db=s_)
+        fe_modes[mode] = dict(ms=t_k, plain_ms=t_p, snr_db=s_, **bnd)
         kernels[frontend_fused.name]["max_abs_err"] = max(
             kernels[frontend_fused.name]["max_abs_err"], err)
         del xx, dk, dp
@@ -734,8 +897,8 @@ def main() -> None:
                  2 * CH, cm.if_block * BLOCKS),
                 (f"mode{mode}_rds_baseband_{r_up}_{r_down}",
                  rxm.rds_path.baseband_bank, CH * BLOCKS, cm.if_block)):
-            t_k, t_p, err, body = check_site(name, bank, rows, n)
-            mode_sites[name] = dict(ms=t_k, plain_ms=t_p, body=body)
+            t_k, t_p, err, body, extra = check_site(name, bank, rows, n)
+            mode_sites[name] = dict(ms=t_k, plain_ms=t_p, body=body, **extra)
             kernels[fir_bank.name]["max_abs_err"] = max(
                 kernels[fir_bank.name]["max_abs_err"], err)
         outs, states, seg_ms, _, _ = run_path(

@@ -26,7 +26,7 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from real_time_sdr_tpu.config import ReceiverConfig, mode_config  # noqa: E402
+from real_time_sdr_tpu_torch.config import ReceiverConfig, mode_config  # noqa: E402
 
 __all__ = ["ReceiverConfig", "mode_config"]
 __version__ = "0.1.0"

@@ -209,12 +209,12 @@ def _fetch(torch, device, tensors):
 
 
 def _native_io():
-    """The JAX package's native I/O module, its library built at most once
+    """The native I/O module (``utils.native_io``), its library built at most once
     per checkout: concurrent first runs take turns on a lock file, so no
     process loads a library that another is still linking."""
     import fcntl
 
-    from real_time_sdr_tpu.utils import native_io
+    from real_time_sdr_tpu_torch.utils import native_io
     lock = os.path.join(os.path.dirname(native_io._LIB_PATH), ".build.lock")
     try:
         with open(lock, "w") as f:

@@ -81,7 +81,10 @@ extern "C" int sdr_fir_decimate(const float* xx, const float* h, float* y,
     const cudaError_t err = cudaFuncSetAttribute(
         fir_decimate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // reported here: the next launch must not see it
+      return static_cast<int>(err);
+    }
   }
   const dim3 grid((n_out + kTile - 1) / kTile, C);
   fir_decimate_kernel<<<grid, kThreads, smem,

@@ -44,8 +44,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from real_time_sdr_tpu.config import ReceiverConfig
-from real_time_sdr_tpu.ops import filters
+from real_time_sdr_tpu_torch.config import ReceiverConfig
+from real_time_sdr_tpu_torch.ops import filters
 from real_time_sdr_tpu_torch.ops.cuda.chan_epilogue import (chan_epilogue,
                                                             quantize_u8,
                                                             rotate_stations)

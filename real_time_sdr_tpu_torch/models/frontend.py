@@ -14,8 +14,8 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from real_time_sdr_tpu.config import ReceiverConfig
-from real_time_sdr_tpu.ops import filters
+from real_time_sdr_tpu_torch.config import ReceiverConfig
+from real_time_sdr_tpu_torch.ops import filters
 from real_time_sdr_tpu_torch.ops.cuda.frontend_fused import frontend_fused
 from real_time_sdr_tpu_torch.ops.fir import DualPhaseFIR
 

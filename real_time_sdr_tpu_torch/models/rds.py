@@ -24,9 +24,9 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from real_time_sdr_tpu import config as C
-from real_time_sdr_tpu.config import ReceiverConfig
-from real_time_sdr_tpu.ops import filters
+from real_time_sdr_tpu_torch import config as C
+from real_time_sdr_tpu_torch.config import ReceiverConfig
+from real_time_sdr_tpu_torch.ops import filters
 from real_time_sdr_tpu_torch.ops.fir import PolyFIR, make_bank, state_len
 from real_time_sdr_tpu_torch.ops.pll import PllCarry, PllParams
 from real_time_sdr_tpu_torch.ops.rds_bits import (BitSyncState, TimingTrack,

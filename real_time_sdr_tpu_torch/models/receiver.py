@@ -22,7 +22,7 @@ from typing import Any, NamedTuple
 import torch
 from torch import nn
 
-from real_time_sdr_tpu.config import ReceiverConfig, mode_config
+from real_time_sdr_tpu_torch.config import ReceiverConfig, mode_config
 from real_time_sdr_tpu_torch.device import resolve_device
 from real_time_sdr_tpu_torch.models.audio import MonoPath, StereoPath
 from real_time_sdr_tpu_torch.models.frontend import Frontend

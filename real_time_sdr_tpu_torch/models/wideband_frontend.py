@@ -32,8 +32,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from real_time_sdr_tpu.config import ReceiverConfig
-from real_time_sdr_tpu.ops import filters
+from real_time_sdr_tpu_torch.config import ReceiverConfig
+from real_time_sdr_tpu_torch.ops import filters
 from real_time_sdr_tpu_torch.models.channelizer import (FOLD_R, Channelizer,
                                                         _check_rails,
                                                         frame_rail, lcm_of)

@@ -22,7 +22,10 @@ large argument.
 - Tier 1 runs through the kernel wrapper
   ``ops.cuda.pll_scan.pll_scan_kernel``: a CPU tensor takes
   ``pll_scan_plain`` (a per-sample loop over the channel column), a CUDA
-  tensor launches the sequential-PLL kernel.
+  tensor launches the sequential-PLL kernel. The kernel evaluates the
+  detector without transcendentals (x is real, so e = wrap(pi*[x<0] - arg));
+  ``pll_scan_wrapped`` mirrors that arithmetic in torch as a test oracle
+  and is on no path.
 - ``pll_newton`` (tier 2) is plain torch on any device: Newton sweeps over
   chunks, each solving the linearized recurrence with a log-step scan of
   2x2 affine maps. A correctness twin of tier 1, not a serving path.
@@ -38,7 +41,7 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["PllCarry", "PllParams", "pll_init", "pll_scan_plain",
-           "pll_newton"]
+           "pll_scan_wrapped", "pll_newton"]
 
 _CP = 2.666
 _CI = 3.555
@@ -140,6 +143,75 @@ def pll_scan_plain(x: torch.Tensor, carry: PllCarry, p: PllParams):
     nco = torch.cos(torch.stack(args, dim=-1) * p.nco_scale + p.phase_adjust)
     carrier = torch.cat([carry.last_nco[:, None], nco[:, :-1]], dim=-1)
     new = PllCarry(fbi=fbi, fbq=fbq, integ=integ,
+                   phase=torch.remainder(phase, FOUR_PI),
+                   trig=trig[:, -1].to(torch.int32),
+                   last_nco=nco[:, -1].contiguous())
+    return carrier, new
+
+
+# The wrapped detector's constants, each one float32 value (the kernel
+# csrc/pll_scan.cu holds the same literals): pi, 2*pi split in two for an
+# exact reduction, 1/(2*pi), and 1.5 * 2^23, which rounds a float32 sum to
+# the nearest integer (ties to even).
+_F32 = torch.float32
+PI_F = torch.tensor(math.pi, dtype=_F32).item()
+TWO_PI_HI = torch.tensor(2.0 * math.pi, dtype=_F32).item()
+TWO_PI_LO = torch.tensor(2.0 * math.pi - TWO_PI_HI, dtype=_F32).item()
+INV_TWO_PI = torch.tensor(0.5 / math.pi, dtype=_F32).item()
+ROUND_MAGIC = 12582912.0
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 a*b + c rounded once: the product of two float32 values is
+    exact in float64, and the float64 sum is rounded to float32 (a double
+    rounding that differs from a true fma only at float64 ties)."""
+    return (a.double() * b + c).to(_F32)
+
+
+def wrapped_detector(x: torch.Tensor, arg: torch.Tensor) -> torch.Tensor:
+    """The phase detector atan2(x*(-sin arg), x*cos arg) for real, finite,
+    non-zero x without transcendentals: -arg (x > 0) or pi - arg (x < 0),
+    reduced into [-pi, pi] by r - 2*pi*rint(r/(2*pi)), with -pi mapped to
+    +pi. The kernel's arithmetic, operation for operation."""
+    r = torch.where(x < 0, PI_F, 0.0).to(_F32) - arg
+    k = _fma(r, INV_TWO_PI, ROUND_MAGIC) - ROUND_MAGIC
+    e = _fma(-k, TWO_PI_LO, _fma(-k, TWO_PI_HI, r))
+    return torch.where(e <= -PI_F, e + TWO_PI_HI, e)
+
+
+def pll_scan_wrapped(x: torch.Tensor, carry: PllCarry, p: PllParams):
+    """Tier 1 as the CUDA kernel computes it: ``pll_scan_plain``'s loop with
+    the wrapped detector. A sample that is zero or not finite, and the
+    first sample of a call (whose feedback is the carried (fbi, fbq), not
+    an angle), takes the literal detector, so signed zeros, +-pi and NaN
+    propagate as in the plain version. A test oracle; on no path."""
+    check_args(x, carry)
+    n = x.shape[-1]
+    if n == 0:
+        return x.clone(), carry
+    kp, ki = p.kp, p.ki
+    steps = torch.arange(1, n + 1, dtype=torch.int64, device=x.device)
+    trig = (carry.trig.to(torch.int64)[:, None] + steps) % p.period
+    ramp = p.trig_angle(trig).t().contiguous()               # (N, C)
+    integ, phase = carry.integ, carry.phase
+    arg = torch.zeros_like(phase)
+    literal = ((x == 0) | ~torch.isfinite(x)).t().contiguous()
+    literal[0] = True
+    args = []
+    for k, (xk, ak, lit) in enumerate(zip(x.t().contiguous().unbind(0),
+                                          ramp.unbind(0), literal.unbind(0))):
+        e = wrapped_detector(xk, arg)
+        if lit.any():
+            fbi, fbq = ((carry.fbi, carry.fbq) if k == 0
+                        else (torch.cos(arg), torch.sin(arg)))
+            e = torch.where(lit, torch.atan2(xk * (-fbq), xk * fbi), e)
+        integ = integ + ki * e
+        phase = phase + kp * e + integ
+        arg = ak + phase
+        args.append(arg)
+    nco = torch.cos(torch.stack(args, dim=-1) * p.nco_scale + p.phase_adjust)
+    carrier = torch.cat([carry.last_nco[:, None], nco[:, :-1]], dim=-1)
+    new = PllCarry(fbi=torch.cos(arg), fbq=torch.sin(arg), integ=integ,
                    phase=torch.remainder(phase, FOUR_PI),
                    trig=trig[:, -1].to(torch.int32),
                    last_nco=nco[:, -1].contiguous())

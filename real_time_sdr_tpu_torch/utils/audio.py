@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from real_time_sdr_tpu.config import AUDIO_SCALE
+from real_time_sdr_tpu_torch.config import AUDIO_SCALE
 
 __all__ = ["mono_pcm", "stereo_pcm"]
 

@@ -20,9 +20,9 @@ from fractions import Fraction
 import numpy as np
 from scipy import signal as sp_signal
 
-from real_time_sdr_tpu.config import (PILOT_FREQ, RDS_SYMBOL_RATE,
+from real_time_sdr_tpu_torch.config import (PILOT_FREQ, RDS_SYMBOL_RATE,
                                       ReceiverConfig)
-from real_time_sdr_tpu.ops.filters import design_rrc
+from real_time_sdr_tpu_torch.ops.filters import design_rrc
 from real_time_sdr_tpu_torch.ops.rds_codes import OFFSET_WORDS as _OFFSET_WORDS
 from real_time_sdr_tpu_torch.ops.rds_codes import _crc_remainder
 

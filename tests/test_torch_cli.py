@@ -14,8 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from real_time_sdr_tpu.config import mode_config
 from real_time_sdr_tpu_torch import cli
+from real_time_sdr_tpu_torch.config import mode_config
 from real_time_sdr_tpu_torch.models.receiver import Receiver
 from real_time_sdr_tpu_torch.utils import synth
 from real_time_sdr_tpu_torch.utils.audio import stereo_pcm

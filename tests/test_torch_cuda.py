@@ -6,7 +6,11 @@ conftest (which imports jax):
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py -m cuda
 
-Bounds: frontend demod > 90 dB (the JAX package's streaming bound), FIR
+Bounds: frontend demod > 90 dB (the JAX package's streaming bound; the
+kernel sums plane by plane, the plain version one dot product per output),
+at all four modes, at 1, 32 and 70,000 rows, at 1 output and around one
+block's 1,151 outputs, from unaligned row starts, and through the kernel's
+two bodies (the receiver's geometries, any other); FIR
 bank > 110 dB at every site of the mode-0 slice and at the tiled body's
 edge geometries (f32 sums in another order than the plain SGEMM's), the
 channelizer epilogue byte-equal (it rounds every product and sum as torch
@@ -15,11 +19,13 @@ the card against its own CPU run: audio > 60 dB, RDS bits equal. The
 two-stage wideband path's u8 station streams agree with the CPU run within
 1 LSB on < 1 % of bytes (the fold matmul sums in another order on the
 card). The sequential PLL against its plain version run on the same card
-tensors: carrier > 80 dB, counter exact, float carry within 1e-4 (the
-kernel rounds every step as torch's separate elementwise kernels do, so
-it is expected bit-identical; the bound leaves room for a math library
-that differs by an ulp). Modes 1-3: the mode-3 frontend (down 3) > 90 dB
-and the six FIR-bank geometries modes 1-3 add > 110 dB.
+tensors: carrier > 80 dB, counter exact, float carry within 1e-4 with the
+phase compared modulo 4*pi (the kernel's detector is the exact reduction
+of pi*[x<0] - arg where the plain version's runs through sin, cos and
+atan2, so the two agree to rounding, 110-140 dB, and not bit for bit);
+rows of zeros and rows with a NaN take the literal detector and give the
+plain version's NaN pattern. Modes 1-3: the six FIR-bank geometries modes
+1-3 add > 110 dB.
 """
 
 import math
@@ -37,8 +43,9 @@ from real_time_sdr_tpu_torch.ops.cuda.fir_bank import (TILED_TILE,
                                                        fir_bank_plain,
                                                        kernel_body)
 from real_time_sdr_tpu_torch.ops.cuda.fir_kernels import fir_decimate_plain
-from real_time_sdr_tpu_torch.ops.cuda.frontend_fused import frontend_plain
-from real_time_sdr_tpu_torch.ops.fir import PolyFIR, make_bank
+from real_time_sdr_tpu_torch.ops.cuda.frontend_fused import (TILE,
+                                                            frontend_plain)
+from real_time_sdr_tpu_torch.ops.fir import DualPhaseFIR, PolyFIR, make_bank
 from real_time_sdr_tpu_torch.ops.cuda import pll_scan_kernel
 from real_time_sdr_tpu_torch.ops.pll import (PllCarry, PllParams, pll_init,
                                              pll_scan_plain)
@@ -71,22 +78,131 @@ def card():
     return rx, torch.from_numpy(iq)
 
 
+def _check_frontend(xx, dual, seed=0):
+    """Kernel against plain on tail-prefixed rows xx: > 90 dB, prev 1e-4."""
+    rng = np.random.default_rng(seed)
+    rows = xx.shape[0]
+    pi, pq = (torch.from_numpy(rng.uniform(-0.5, 0.5, rows).astype(
+        np.float32)).cuda() for _ in range(2))
+    before = frontend_fused.launches
+    dk, ik, qk = frontend_fused(xx, dual, pi, pq)
+    assert frontend_fused.launches == before + 1
+    dp, ip, qp = frontend_plain(xx, dual, pi, pq)
+    torch.cuda.synchronize()
+    assert dk.shape == dp.shape
+    assert torch.isfinite(dk).all()
+    assert _snr(dp, dk) > 90.0, _snr(dp, dk)
+    assert (ik - ip).abs().max().item() < 1e-4
+    assert (qk - qp).abs().max().item() < 1e-4
+    return dk
+
+
+def _fm_rows(rows, length, shift=0, seed=0):
+    """(rows, length) u8 interleaved I/Q of a constant-envelope carrier
+    with a slow random phase walk (in band at every mode, so the
+    discriminator's divisor stays far from 0), on the card; with ``shift``
+    the rows start that many bytes past an aligned address."""
+    rng = np.random.default_rng(seed)
+    n = rows * length // 2 + 1
+    phase = np.cumsum(rng.uniform(-0.05, 0.05, n))
+    iq = np.empty(2 * n, np.float64)
+    iq[0::2], iq[1::2] = np.cos(phase), np.sin(phase)
+    store = np.zeros(rows * length + shift, np.uint8)
+    store[shift:] = np.round(128 + 100 * iq)[:rows * length]
+    return torch.from_numpy(store).cuda()[shift:].view(rows, length)
+
+
 def test_frontend_kernel_matches_plain(card):
     rx, iq = card
     fe = rx.frontend
     x = iq[: 2 * 2 * rx.cfg.block_size_iq].cuda()
     xx = torch.cat([fe.init_state(2).iq_tail, torch.stack([x, x.flip(0)])],
                    dim=-1)
-    pi = torch.tensor([0.1, -0.3], device="cuda")
-    pq = torch.tensor([0.2, 0.4], device="cuda")
-    before = frontend_fused.launches
-    dk, ik, qk = frontend_fused(xx, fe.rf_fir, pi, pq)
-    assert frontend_fused.launches == before + 1
-    dp, ip, qp = frontend_plain(xx, fe.rf_fir, pi, pq)
-    assert dk.shape == dp.shape == (2, 2 * rx.cfg.if_block)
-    assert _snr(dp, dk) > 90.0
-    assert (ik - ip).abs().max().item() < 1e-4
-    assert (qk - qp).abs().max().item() < 1e-4
+    dk = _check_frontend(xx, fe.rf_fir)
+    assert dk.shape == (2, 2 * rx.cfg.if_block)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_frontend_kernel_all_modes(card, mode):
+    """Two blocks of a synthetic station at each mode's geometry (down 10,
+    4, 10, 3; K 101: the static-taps body), 2 channels."""
+    rx = Receiver(mode, device="cuda")
+    fe = rx.frontend
+    iq, _ = synth.station_iq(rx.cfg, 2)
+    x = torch.from_numpy(iq).cuda()
+    xx = torch.cat([fe.init_state(2).iq_tail, torch.stack([x, x.flip(0)])],
+                   dim=-1)
+    dk = _check_frontend(xx, fe.rf_fir, seed=mode)
+    assert dk.shape == (2, 2 * rx.cfg.if_block)
+
+
+# (rows, n_out, shift): one output, one block's outputs minus 1, exactly,
+# plus 1 and two blocks plus a few; 1 and 32 rows; rows that start 1, 3 or
+# 8 bytes past a 16-byte boundary (and, with L % 16 != 0, anywhere)
+FRONTEND_EDGES = [(1, 1, 0), (32, 1, 1), (1, TILE - 1, 0), (32, TILE - 1, 3),
+                  (1, TILE, 1), (32, TILE, 0), (1, TILE + 1, 3),
+                  (32, TILE + 1, 8), (3, 2 * TILE + 5, 1)]
+
+
+@pytest.mark.parametrize("rows, n_out, shift", FRONTEND_EDGES)
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_frontend_kernel_edges(card, mode, rows, n_out, shift):
+    fe = Receiver(mode, device="cuda").frontend
+    down = fe.rf_fir.down
+    # a few pairs more than n_out needs: the kernel must ignore them
+    length = fe.tail_len + 2 * (down * n_out + down - 1)
+    xx = _fm_rows(rows, length, shift=shift, seed=mode * 100 + n_out)
+    dk = _check_frontend(xx, fe.rf_fir, seed=rows + shift)
+    assert dk.shape == (rows, n_out)
+
+
+@pytest.mark.parametrize("k_taps, down", [(101, 10), (91, 10), (64, 4),
+                                          (33, 3), (33, 7), (3, 5),
+                                          (101, 1)])
+def test_frontend_kernel_bodies(card, k_taps, down):
+    """The static body (K 101 at down 10) and the any-geometry body
+    (another K at down 10, 4, 3; down 7; 5 > K; 1), 3 rows of a block's
+    outputs plus 9 and a ragged end, from an odd address."""
+    rng = np.random.default_rng(k_taps * 10 + down)
+    h = rng.standard_normal(k_taps) * np.hanning(k_taps + 2)[1:-1]
+    dual = DualPhaseFIR(h / np.abs(h).sum(), down).cuda()
+    length = dual.tail_len + 2 * (down * (TILE + 9) + down - 1)
+    xx = _fm_rows(3, length, shift=1, seed=down)
+    dk = _check_frontend(xx, dual, seed=k_taps)
+    assert dk.shape == (3, TILE + 9)
+
+
+@pytest.mark.parametrize("mode", [0, 1])
+def test_frontend_runs_more_than_65535_rows(card, mode):
+    """70,000 short rows (3 outputs each) on the flat grid."""
+    fe = Receiver(mode, device="cuda").frontend
+    length = fe.tail_len + 2 * fe.rf_fir.down * 3
+    xx = _fm_rows(70_000, length, seed=mode)
+    dk = _check_frontend(xx, fe.rf_fir, seed=mode)
+    assert dk.shape == (70_000, 3)
+
+
+def test_frontend_kernel_rejects_what_it_does_not_take(card):
+    rx, _ = card
+    fe = rx.frontend
+    z = torch.zeros(2, device="cuda")
+    good = torch.zeros((2, fe.tail_len + 40), dtype=torch.uint8,
+                       device="cuda")
+    with pytest.raises(ValueError):         # odd length
+        frontend_fused(good[:, :-1].contiguous(), fe.rf_fir, z, z)
+    with pytest.raises(ValueError):         # not contiguous
+        frontend_fused(good[:, ::2], fe.rf_fir, z, z)
+    with pytest.raises(TypeError):
+        frontend_fused(good.float(), fe.rf_fir, z, z)
+    wide = torch.zeros((2, fe.tail_len + 2 * 200 * 3), dtype=torch.uint8,
+                       device="cuda")
+    with pytest.raises(RuntimeError):       # planes beyond shared memory
+        frontend_fused.launch(wide, fe.rf_fir.taps, 200, z, z)
+    with pytest.raises(ValueError):
+        frontend_fused.launch(good, fe.rf_fir.taps, 0, z, z)
+    dk, ik, qk = frontend_fused(good[:, :fe.tail_len + 2].contiguous(),
+                                fe.rf_fir, z, z)
+    assert dk.shape == (2, 0) and torch.equal(ik, z)    # no output: no launch
 
 
 @pytest.mark.parametrize("site", sorted(SITES))
@@ -263,17 +379,14 @@ def test_two_stage_wideband_on_card_matches_cpu(card):
     assert frontend_fused.launches > before[1]
 
 
-@pytest.mark.parametrize("n", [1, 7, 7350])
-@pytest.mark.parametrize("rows", [1, 32, 1000])
-def test_pll_scan_kernel_matches_plain(card, rows, n):
-    """Random pilots (row 0 all zeros: the signed-zero detector) from a
-    carry with random phases, counters and feedback signs."""
-    rng = np.random.default_rng(rows * 10 + n)
+def _pll_case(rows, n, seed):
+    """Random pilots from a carry with random phases, counters and feedback
+    signs, on the card."""
+    rng = np.random.default_rng(seed)
     p = PllParams(freq=19_000, fs=240_000, nco_scale=2.0, norm_bw=0.01)
     t = np.arange(n) / p.fs
     x = np.cos(2 * np.pi * 19_030.0 * t + rng.uniform(0, 6, (rows, 1)))
     x = (x + 0.05 * rng.standard_normal(x.shape)).astype(np.float32)
-    x[0] = 0.0
     ang = rng.uniform(-np.pi, np.pi, rows)
     carry = PllCarry(*(torch.from_numpy(a).cuda() for a in (
         np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32),
@@ -281,16 +394,80 @@ def test_pll_scan_kernel_matches_plain(card, rows, n):
         rng.uniform(0, 12, rows).astype(np.float32),
         rng.integers(0, p.period, rows).astype(np.int32),
         rng.uniform(-1, 1, rows).astype(np.float32))))
+    return p, x, carry
+
+
+def _check_pll(p, x, carry):
+    """Kernel against plain on the same card tensors: the same NaN pattern;
+    over the rows that stay finite carrier > 80 dB, trig equal, float carry
+    within 1e-4 (phase modulo 4*pi)."""
     xc = torch.from_numpy(x).cuda()
     before = pll_scan_kernel.launches
     got, gc = pll_scan_kernel(xc, carry, p)
     assert pll_scan_kernel.launches == before + 1
     ref, rc = pll_scan_plain(xc, carry, p)
-    assert got.shape == ref.shape == (rows, n)
-    assert _snr(ref, got) > 80.0
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == x.shape
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    ok = ~torch.isnan(ref).any(dim=1) & ~torch.isnan(rc.phase)
+    assert _snr(ref[ok], got[ok]) > 80.0, _snr(ref[ok], got[ok])
     assert torch.equal(gc.trig, rc.trig)
+    for name, a, b in zip(gc._fields, gc, rc):
+        assert torch.equal(torch.isnan(a), torch.isnan(b)), name
+        d = (a.double() - b.double()).abs()[ok]
+        if name == "phase":
+            d = torch.minimum(d, (d - 4.0 * math.pi).abs())
+        assert d.max().item() < 1e-4, name
+    return got, gc, ref, rc
+
+
+@pytest.mark.parametrize("n", [1, 7, 7350])
+@pytest.mark.parametrize("rows", [1, 32, 1000])
+def test_pll_scan_kernel_matches_plain(card, rows, n):
+    """Random pilots (row 0 all zeros: the signed-zero detector) from a
+    carry with random phases, counters and feedback signs."""
+    p, x, carry = _pll_case(rows, n, rows * 10 + n)
+    x[0] = 0.0
+    _check_pll(p, x, carry)
+
+
+@pytest.mark.parametrize("rows, n", [(70_000, 64), (5, 255), (5, 256),
+                                     (5, 257), (3, 600), (9, 32), (2, 33)])
+def test_pll_scan_kernel_shapes(card, rows, n):
+    """More rows than any grid dimension but x holds, and lengths around
+    the kernel's chunk of 256 samples and its groups of 32; rows not a
+    multiple of the four a block holds."""
+    _check_pll(*_pll_case(rows, n, rows + n))
+
+
+def test_pll_scan_kernel_zero_and_nan_rows(card):
+    """Rows of zeros are all literal detector: bit-equal to the plain
+    version. A row whose tone stops, a zero in a tone, a NaN and an Inf
+    mid-row follow the plain version (the NaN pattern exactly) and leave
+    their block-mates alone."""
+    p, x, carry = _pll_case(8, 700, 5)
+    x[0] = 0.0
+    x[1, 300:] = 0.0
+    x[2, 411] = 0.0
+    x[3, 120] = np.nan
+    x[4, 333] = np.inf
+    x[5] = 0.0
+    got, gc, ref, rc = _check_pll(p, x, carry)
+    assert torch.equal(got[[0, 5]], ref[[0, 5]])
     for a, b in zip(gc, rc):
-        assert (a.double() - b.double()).abs().max().item() < 1e-4
+        assert torch.equal(a[[0, 5]], b[[0, 5]])
+    assert torch.isnan(got[3, 122:]).all() and torch.isnan(gc.integ[3])
+    assert not torch.isnan(got[[0, 1, 2, 4, 5, 6, 7]]).any()
+
+
+def test_pll_scan_kernel_takes_strided_rows(card):
+    """Rows of a wider tensor (row stride > N), as a receiver slices them."""
+    p, x, carry = _pll_case(6, 500, 11)
+    wide = torch.from_numpy(np.pad(x, ((0, 0), (3, 9)))).cuda()
+    got, gc = pll_scan_kernel(wide[:, 3:503], carry, p)
+    ref, rc = pll_scan_kernel(torch.from_numpy(x).cuda(), carry, p)
+    assert torch.equal(got, ref)
+    assert all(torch.equal(a, b) for a, b in zip(gc, rc))
 
 
 def test_pll_tier1_receiver_on_card_matches_cpu(card):
@@ -316,13 +493,8 @@ def test_mode3_frontend_matches_plain(card):
     x = torch.from_numpy(iq).cuda()
     xx = torch.cat([fe.init_state(2).iq_tail, torch.stack([x, x.flip(0)])],
                    dim=-1)
-    pi = torch.tensor([0.1, -0.3], device="cuda")
-    pq = torch.tensor([0.2, 0.4], device="cuda")
-    dk, ik, qk = frontend_fused(xx, fe.rf_fir, pi, pq)
-    dp, ip, qp = frontend_plain(xx, fe.rf_fir, pi, pq)
-    assert dk.shape == dp.shape == (2, 2 * rx.cfg.if_block)
-    assert _snr(dp, dk) > 90.0
-    assert (ik - ip).abs().max().item() < 1e-4
+    dk = _check_frontend(xx, fe.rf_fir)
+    assert dk.shape == (2, 2 * rx.cfg.if_block)
 
 
 # the audio and RDS baseband resamplers of modes 1-3: (mode, site)

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from real_time_sdr_tpu.config import mode_config as jmode_config
 from real_time_sdr_tpu.models.receiver import Receiver as JReceiver
 from real_time_sdr_tpu.utils import synth as jsynth
 from real_time_sdr_tpu_torch.models.receiver import Receiver
@@ -85,7 +86,8 @@ def test_segment_equals_blocks_fractional(mode):
     rx = Receiver(mode, stereo=True, rds=True, pll_tier=1)
     cfg = rx.cfg
     assert (cfg.if_block * cfg.audio_up) % cfg.audio_down == 0
-    iq, _ = jsynth.station_iq(cfg, N_BLOCKS, ps_name="SEGDEV  ")
+    iq, _ = jsynth.station_iq(jmode_config(mode), N_BLOCKS,
+                              ps_name="SEGDEV  ")
     x = torch.from_numpy(iq)[None]
     _, seg = rx.run_segment(rx.init_state(1), x)
     _, blk = rx.run_blocks(rx.init_state(1), x.reshape(1, N_BLOCKS, -1))
@@ -100,7 +102,7 @@ def test_segment_equals_blocks_fractional(mode):
 
 def test_run_blocks_equals_chained_steps():
     rx = Receiver(1, stereo=True, rds=True, pll_tier=3)
-    iq, _ = jsynth.station_iq(rx.cfg, 3)
+    iq, _ = jsynth.station_iq(jmode_config(1), 3)
     x = torch.from_numpy(np.stack([iq, np.roll(iq, 4096)]))   # 2 channels
     blocks = x.reshape(2, 3, -1)
     st_b, out_b = rx.run_blocks(rx.init_state(2), blocks)

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from real_time_sdr_tpu import config as C
-from real_time_sdr_tpu.config import mode_config
+from real_time_sdr_tpu.config import mode_config as jmode_config
 from real_time_sdr_tpu.models.frontend import Frontend as JFrontend
 from real_time_sdr_tpu.ops import filters
 from real_time_sdr_tpu.ops import fir as jfir
@@ -32,6 +32,7 @@ from real_time_sdr_tpu.ops.pll import PllParams as JPllParams
 from real_time_sdr_tpu.ops.sync import FeedforwardSync as JSync
 from real_time_sdr_tpu.utils import audio as jaudio
 from real_time_sdr_tpu.utils import synth as jsynth
+from real_time_sdr_tpu_torch.config import mode_config
 from real_time_sdr_tpu_torch.models.channelizer import Channelizer
 from real_time_sdr_tpu_torch.models.frontend import Frontend
 from real_time_sdr_tpu_torch.models.receiver import Receiver
@@ -44,7 +45,9 @@ from real_time_sdr_tpu_torch.ops.cuda.fir_bank import (TILED_TILE,
                                                        kernel_body)
 from real_time_sdr_tpu_torch.ops.cuda.fir_kernels import (fir_decimate_planes,
                                                           fir_decimate_plain)
-from real_time_sdr_tpu_torch.ops.cuda.frontend_fused import frontend_plain
+from real_time_sdr_tpu_torch.ops.cuda.frontend_fused import (SPAN, TILE,
+                                                            frontend_plain,
+                                                            frontend_planes)
 from real_time_sdr_tpu_torch.ops.demod import fm_demod
 from real_time_sdr_tpu_torch.utils import audio as taudio
 
@@ -213,7 +216,7 @@ def test_fm_demod_matches_jax():
 
 @pytest.fixture(scope="module")
 def frontend_case():
-    cfg = mode_config(0)
+    cfg = jmode_config(0)
     iq, _ = jsynth.station_iq(cfg, 2, ps_name="FRONTEND")
     rng = np.random.default_rng(11)
     iq2 = rng.integers(0, 256, iq.shape, dtype=np.uint8)
@@ -228,7 +231,7 @@ def test_frontend_plain_matches_jax(frontend_case):
     h = filters.design_lpf(cfg.rf_fs, cfg.rf_fc, cfg.rf_taps)
     jx = JFrontend(cfg, impl="xla")
     pal = FusedFrontendFIR(h, down=cfg.rf_decim, interpret=True)
-    fe = Frontend(cfg)
+    fe = Frontend(mode_config(0))
     n_half = iq.shape[1] // 2
     st = fe.init_state(2)
     port = []                                  # (demod, state) per call
@@ -386,3 +389,64 @@ def test_new_wrappers_route_by_device():
         chan_epilogue(m(y), m(pc), m(ps), 2, 4, 16)
     with pytest.raises(ValueError):
         fir_decimate(torch.empty((2, 600), device="meta"), [1.0] * 101, 5)
+
+
+# --- the fused frontend's plane decomposition (the CUDA kernel's sums) -------
+
+@pytest.mark.parametrize("down", [3, 4, 10, 7])
+def test_frontend_planes_match_plain_and_jax(down):
+    """``frontend_planes`` sums ``down`` polyphase planes of short
+    unit-stride FIRs, as the CUDA kernel does, where ``frontend_plain`` is
+    one framed dot product per output. On a synthetic station capture
+    (2 channels, 1 mode-0 block, a carried prev): demod > 110 dB against
+    ``frontend_plain`` (measured 119-138 dB; both are f32 sums of the same
+    101 exact products in another order), prev within 1e-6; against the JAX
+    DualPhaseFIR + fm_demod > 65 dB, the plain version's own bound there
+    (JAX subtracts the 128 offset after the matmul)."""
+    cfg = jmode_config(0)
+    h = filters.design_lpf(cfg.rf_fs, cfg.rf_fc, cfg.rf_taps)
+    dual = tfir.DualPhaseFIR(h, down)
+    iq, _ = jsynth.station_iq(cfg, 1, ps_name="PLANES  ")
+    two = np.stack([iq, np.roll(iq, 2 * 1001)])
+    n = ((two.shape[1] - dual.tail_len) // (2 * down)) * 2 * down
+    tail, body = two[:, :dual.tail_len], two[:, dual.tail_len:][:, :n]
+    xx = torch.from_numpy(np.concatenate([tail, body], axis=1))
+    pi = torch.tensor([0.1, -0.2])
+    pq = torch.tensor([0.3, 0.05])
+    dp, ip, qp = frontend_plain(xx, dual, pi, pq)
+    dk, ik, qk = frontend_planes(xx, dual.taps, down, pi, pq)
+    assert dk.shape == dp.shape == (2, n // 2 // down)
+    for c in range(2):
+        assert _snr(dp[c], dk[c]) > 110.0, _snr(dp[c], dk[c])
+    assert float((ik - ip).abs().max()) < 1e-6
+    assert float((qk - qp).abs().max()) < 1e-6
+    jdual = jfir.DualPhaseFIR(h, down)
+    for c in range(2):
+        i_j, q_j, _ = jdual(jnp.asarray(body[c]), jnp.asarray(tail[c]))
+        dj, _, _ = j_fm_demod(i_j, q_j, jnp.float32(pi[c].item()),
+                              jnp.float32(pq[c].item()))
+        assert _snr(dj, dk[c]) > 65.0, _snr(dj, dk[c])
+
+
+def test_frontend_planes_short_rows_and_tap_counts():
+    """Planes with unequal tap counts (K not a multiple of down), more
+    planes than taps (down > K), and one output."""
+    rng = np.random.default_rng(9)
+    for K, down, n_out in [(5, 3, 7), (3, 5, 4), (101, 10, 1), (4, 4, 2)]:
+        dual = tfir.DualPhaseFIR(rng.standard_normal(K), down)
+        xx = torch.from_numpy(rng.integers(
+            0, 256, (2, 2 * K - 2 + 2 * down * n_out + 2 * (down - 1)),
+            dtype=np.uint8))
+        z = torch.tensor([0.2, -0.1])
+        dp, ip, qp = frontend_plain(xx, dual, z, -z)
+        dk, ik, qk = frontend_planes(xx, dual.taps, down, z, -z)
+        assert dk.shape == dp.shape == (2, n_out)
+        torch.testing.assert_close(dk, dp, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(ik, ip, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(qk, qp, rtol=1e-5, atol=1e-5)
+
+
+def test_frontend_kernel_tile_constants():
+    """The wrapper's copy of the kernel's tile: 9 outputs per thread x 128
+    threads, one of them the predecessor of the block's first output."""
+    assert (SPAN, TILE) == (1152, 1151)

@@ -184,7 +184,7 @@ def test_station_iq_copy_identical():
     kw = dict(ps_name="COPYTEST", pi=0x1111, pty=3, radiotext="HELLO PORT",
               ptyn="PTYNAME", clock=(2026, 10, 16, 9, 30), af_mhz=(98.1,))
     a, ta = jsynth.station_iq(cfg, 2, **kw)
-    b, tb = tsynth.station_iq(cfg, 2, **kw)
+    b, tb = tsynth.station_iq(Receiver(0).cfg, 2, **kw)
     np.testing.assert_array_equal(a, b)
     assert ta["bits"] == tb["bits"]
 
@@ -210,8 +210,9 @@ def test_framer_copy_events_identical(slice_run):
 def test_port_runs_without_jax():
     """Importing the port and running a CPU run_segment, one tier-1 block,
     one wideband segment through both wideband frontends and the channel
-    bank, and the CLI on one block, loads no jax (a subprocess: this test
-    process already imported jax)."""
+    bank, and the CLI on one block, loads no jax, no module of the JAX
+    package ``real_time_sdr_tpu`` and no ``golden`` (a subprocess: this
+    test process already imported all three)."""
     code = textwrap.dedent("""
         import os
         import sys
@@ -260,8 +261,11 @@ def test_port_runs_without_jax():
                                              fst)
             assert out.left.shape == (2, rx.cfg.audio_block)
             state.state_from_numpy(state.state_to_numpy(fst))
-        assert "jax" not in sys.modules, sorted(
-            m for m in sys.modules if m.startswith("jax"))
+        foreign = sorted(
+            m for m in sys.modules
+            if m.split(".")[0] in ("jax", "jaxlib", "real_time_sdr_tpu",
+                                   "golden"))
+        assert not foreign, foreign
         print("ok")
     """)
     env = dict(os.environ)
@@ -274,7 +278,7 @@ def test_port_runs_without_jax():
 
 def test_meta_tensors_raise():
     """A tensor on any device but CPU or CUDA takes no route."""
-    fe = Frontend(JReceiver(0).cfg).to("meta")
+    fe = Frontend(Receiver(0).cfg).to("meta")
     xx = torch.empty((1, fe.tail_len + 2940), dtype=torch.uint8,
                      device="meta")
     z = torch.empty((1,), device="meta")

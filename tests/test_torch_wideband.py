@@ -32,12 +32,13 @@ import pytest
 import torch
 
 from conftest import mk_channelizer
-from real_time_sdr_tpu.config import mode_config
+from real_time_sdr_tpu.config import mode_config as jmode_config
 from real_time_sdr_tpu.models.receiver import Receiver as JReceiver
 from real_time_sdr_tpu.models.wideband_frontend import \
     FusedWidebandFrontend as JFused
 from real_time_sdr_tpu.parallel.channel import ChannelBank as JBank
 from real_time_sdr_tpu.utils import synth as jsynth
+from real_time_sdr_tpu_torch.config import mode_config
 from real_time_sdr_tpu_torch.models.channelizer import Channelizer
 from real_time_sdr_tpu_torch.models.rds_framing import RdsFramer
 from real_time_sdr_tpu_torch.models.receiver import Receiver
@@ -48,7 +49,8 @@ from real_time_sdr_tpu_torch.utils import synth as tsynth
 from real_time_sdr_tpu_torch.utils.state import (state_from_numpy,
                                                  state_to_numpy)
 
-CFG = mode_config(0)
+CFG = mode_config(0)        # the port's
+JCFG = jmode_config(0)      # the JAX package's
 WIDE_FS = 4 * CFG.rf_fs                                    # 9.6 MS/s
 RASTER4 = [-450_000, -150_000, 150_000, 450_000]           # 300 kHz raster
 
@@ -107,7 +109,7 @@ def test_channelizer_matches_jax(form):
     1 LSB, tails and pos equal; the JAX state after segment 2 converts and
     resumes in the port for segment 3."""
     offs, fold, mode = FORMS[form]
-    jch = mk_channelizer(CFG, WIDE_FS, offs, fold=fold and mode != "general")
+    jch = mk_channelizer(JCFG, WIDE_FS, offs, fold=fold and mode != "general")
     ch = Channelizer(CFG, WIDE_FS, offs, fold=fold)
     got_mode = ("general" if not ch.tone_period else "mix" if not ch.fold
                 else "static" if ch.fold_static else "runtime")
@@ -174,7 +176,7 @@ def test_fused_frontend_matches_jax():
     chained segments (the second from the converted JAX state too); the
     weights are the JAX package's bit for bit."""
     offs = [-1_700_000, 800_000, 2_300_000]       # 100 kHz raster
-    jwf = JFused(CFG, WIDE_FS, offs, compute_dtype="f32")
+    jwf = JFused(JCFG, WIDE_FS, offs, compute_dtype="f32")
     wf = FusedWidebandFrontend(CFG, WIDE_FS, offs)
     assert (wf.lo, wf.r_n, wf.j_w, wf.k_eq) == (jwf.lo, jwf.r_n, jwf.j_w,
                                                 jwf.k_eq)
@@ -264,7 +266,7 @@ def test_fused_eligibility_matches_jax(grid):
             wide_fs, CFG.rf_fs, CFG.rf_decim, offs) == JFused.output_lcm(
             wide_fs, CFG.rf_fs, CFG.rf_decim, offs))
         ok = FusedWidebandFrontend.eligible(CFG, wide_fs, offs)
-        assert ok == JFused.eligible(CFG, wide_fs, offs)
+        assert ok == JFused.eligible(JCFG, wide_fs, offs)
     assert FusedWidebandFrontend.eligible(CFG, WIDE_FS, [-300_000, 100_000])
     assert not FusedWidebandFrontend.eligible(CFG, WIDE_FS, [7])
     if not FusedWidebandFrontend.eligible(CFG, WIDE_FS, offs):
@@ -390,8 +392,8 @@ def test_bank_on_jax_channelizer_u8_matches_jax_bank(rx):
     scene = [dict(offset_hz=o, ps_name=f"BANK-{k}  ", pi=0x4A00 + k, pty=k,
                   tone_left=500.0 + 100 * k, tone_right=1300.0)
              for k, o in enumerate(RASTER4)]
-    iw, qw, _ = jsynth.wideband_iq(CFG, WIDE_FS, scene, 8)
-    jch = mk_channelizer(CFG, WIDE_FS, RASTER4, fold=True)
+    iw, qw, _ = jsynth.wideband_iq(JCFG, WIDE_FS, scene, 8)
+    jch = mk_channelizer(JCFG, WIDE_FS, RASTER4, fold=True)
     u8, _ = jch.call_u8(jnp.asarray(iw), jnp.asarray(qw), jch.init_state())
     u8 = np.asarray(u8)
     cut = 6 * 2 * CFG.block_size_iq
@@ -461,7 +463,7 @@ def test_slice_decodes_both_stations(rx, scene, path):
 def test_wideband_iq_copy_identical():
     st = [dict(offset_hz=-600_000, ps_name="COPY-A  ", amp=2.0),
           dict(offset_hz=900_000, ps_name="COPY-B  ", tone_left=700.0)]
-    a = jsynth.wideband_iq(CFG, WIDE_FS, st, 2)
+    a = jsynth.wideband_iq(JCFG, WIDE_FS, st, 2)
     b = tsynth.wideband_iq(CFG, WIDE_FS, st, 2)
     np.testing.assert_array_equal(a[0], b[0])
     np.testing.assert_array_equal(a[1], b[1])
