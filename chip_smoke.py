@@ -17,8 +17,13 @@ non-zero on failure:
    blocks; each site prints the kernel body its geometry takes, tiled at
    up = down = 1 and general otherwise, its useful GFLOP and TFLOP/s);
    the channelizer epilogue byte-equal at the 64-station shape;
-   the direct-form decimating FIR > 110 dB at the audio-rail geometry,
-   beside the FIR bank at the same geometry; the sequential PLL
+   the direct-form decimating FIR (``fir_decimate``, the audio resampler
+   of modes 0-1) > 110 dB at mode 0's audio rails (64 rails x 88,200, K
+   101, down 5) and mode 1's (64 x 158,760, K 101, down 9), both through
+   its static body, at one geometry of its general body (K 101, down 4)
+   and at 1 and 1,000 rows, each beside ``conv1d``, the FIR bank at the
+   same geometry, the body taken and whether the output is bit-identical
+   to the FIR bank's; the sequential PLL
    (``pll_scan``, the tier-1 carrier loop) > 80 dB against its plain
    version run on the same card tensors, with ``trig`` equal and the
    float carry within 1e-4 (``phase`` modulo 4*pi), at 32 channels x 1
@@ -35,9 +40,13 @@ non-zero on failure:
 4. mode-0 path: a synthetic station tiled to 32 channels (distinct time
    shifts) through ``Receiver(0, stereo=True, rds=True, pll_tier=3,
    device="cuda").run_segment`` over three chained 12-block segments; the
-   frontend and FIR-bank launch counts must rise, through both FIR-bank
-   bodies; channel 0's PS/PI must
-   decode and its left/right channels carry their tones; channels 0-1 of
+   frontend, FIR-bank and ``fir_decimate`` launch counts must rise,
+   through both FIR-bank bodies and the decimating FIR's static body;
+   channel 0's PS/PI must decode, and PS on no fewer channels than the
+   port's CPU run and the JAX receiver decode it on (30 of 32 at mode 0:
+   on two shifts the capture's wrap point and the warm-up cost every copy
+   of one PS segment); its left/right channels carry their tones;
+   channels 0-1 of
    the first two segments must agree with the port's own CPU run (audio
    > 60 dB, RDS bits equal from a carried state); warm segments are timed
    for the aggregate real-time multiple; then the same 32 x 12 segments
@@ -50,15 +59,18 @@ non-zero on failure:
    then modes 1-3 at 32 ch x 12 blk, type r, tier 3: the frontend > 90 dB
    (mode 3 decimates by 3) and each new FIR-bank geometry (audio 1/9,
    147/800, 147/1280; RDS 247/960, 19/96, 95/768) > 110 dB against their
-   plain versions, PS/PI decoded on channel 0, channels 0-1 against the
+   plain versions, PS/PI decoded on channel 0 (PS on 31, 29 and 31 of 32
+   channels, as on the CPU), channels 0-1 against the
    CPU run (audio > 60 dB, RDS bits equal from a carried state), warm
-   segments timed;
+   segments timed; ``fir_decimate`` must launch at mode 1 and must not at
+   modes 2-3, whose audio upsamples;
 5. wideband paths: 64 stations on the 300 kHz raster in one 19.2 MS/s
    capture (3 real stations, the other slots empty), raw u8 bytes through
    ``ChannelBank.run_wideband_u8`` in 12-block segments, once through the
    two-stage ``Channelizer`` (the epilogue, frontend and FIR-bank kernels
    must launch, the FIR bank's tiled body among them) and once through the
-   fused frontend (the FIR bank's tiled body must launch); PS/PI must
+   fused frontend (the FIR bank's tiled body must launch);
+   ``fir_decimate`` must launch on both; PS/PI must
    decode on the 3 stations on both paths; the
    two-stage u8 of the first 2 blocks must agree with the CPU run (within
    1 LSB on < 1 % of bytes); warm segments are timed;
@@ -71,9 +83,24 @@ non-zero on failure:
    ingest->PCM latency against the 30.6 ms block deadline; then
    ``--staged 0``, ``0`` and ``1`` with ``--stats`` (identical PCM; each
    run's ms per block and p50/p99 printed beside the pinned upload's);
-   ``2 r --pll-tier 1`` decodes PS.
+   ``2 r --pll-tier 1`` decodes PS;
+7. wideband CLI at full width: the 64-station 19.2 MS/s capture of phase
+   5 (36 blocks, 42.3 MB) in a file; ``python -m
+   real_time_sdr_tpu_torch.cli 0 r --stations=<64 offsets> --wide-fs
+   19200000 --output-dir D --segment 12 --stats`` in a subprocess: exit
+   0, ``ch3 ps:``, ``ch32 ps:`` and ``ch62 ps:`` lines with the stations'
+   PS, 64 PCM files of exactly 36 x audio_block x 2 samples, its ``kernel
+   launches`` line (``fir_bank`` and ``fir_decimate`` above 0), its
+   real-time multiple on the capture rate; again with ``--pipeline 4``
+   (PCM byte-identical); with ``--retune 1:0:<slot 32's offset>``
+   (station 0 prints slot 32's PS after segment 1, the other 63 PCM files
+   byte-identical); and as two runs with ``--checkpoint`` (18 blocks, then
+   the rest: the joined PCM within 1 LSB of the first run's, the three
+   stations' PS printed by the end).
 
-Each path's kernel counts are set to 0 just before it and read just after.
+Each path's kernel counts are set to 0 just before it and read just after
+(a CLI run is a process of its own: its counts start at 0 and are read from
+its ``kernel launches`` line).
 The last two lines are the kernels' JSON and the device JSON.
 ``--profile DIR`` also writes a torch.profiler table of one warm segment
 of each path to DIR and prints the segment's FIR-bank device time.
@@ -98,6 +125,11 @@ import time
 CH, BLOCKS, SEGMENTS = 32, 12, 3
 CLI_BLOCKS = 192      # the CLI capture: 5.88 s of radio at mode 0
 PS, PI, PTY = "H100 FM ", 0x3A5C, 5
+# channels of the 32 shifted copies on which PS decodes, by mode: what the
+# port's CPU run and (mode 0) the JAX receiver give on the same shifts. On
+# the others the capture's wrap point and the warm-up together cost every
+# copy of one PS segment of the 36-block capture.
+PS_CHANNELS = {0: 30, 1: 31, 2: 29, 3: 31}
 WB_STATIONS, WB_MULT, WB_SLOTS = 64, 8, (3, 32, 62)
 # H100 SXM data-sheet peaks behind every bound: HBM bytes/s and f32 FLOP/s
 # outside the tensor cores (no kernel of the port uses the tensor cores).
@@ -188,6 +220,9 @@ def profile_segment(torch, card, path, name, run, run_ms):
                         if e.device_type == DeviceType.CUDA
                         and f"fir_bank_{body}" in e.key)
               for body in ("tiled", "general")}
+    fd_us = sum(e.self_device_time_total for e in avg
+                if e.device_type == DeviceType.CUDA
+                and "fir_decimate" in e.key)
     table = avg.table(sort_by="device_time_total", row_limit=40)
     out = os.path.join(path, f"{name}.txt")
     with open(out, "w") as f:
@@ -197,7 +232,8 @@ def profile_segment(torch, card, path, name, run, run_ms):
           f"{1 - busy_us / 1e3 / run_ms:.2f}); FIR-bank kernels "
           f"{sum(fir_us.values()) / 1e3:.3f} ms (tiled "
           f"{fir_us['tiled'] / 1e3:.3f}, general "
-          f"{fir_us['general'] / 1e3:.3f})")
+          f"{fir_us['general'] / 1e3:.3f}); fir_decimate "
+          f"{fd_us / 1e3:.3f} ms")
     print("\n".join(table.splitlines()[:22]))
 
 
@@ -234,6 +270,8 @@ def main() -> None:
             fir_bank_plain, kernel_body)
         from real_time_sdr_tpu_torch.ops.cuda.fir_kernels import \
             fir_decimate_plain
+        from real_time_sdr_tpu_torch.ops.cuda.fir_kernels import \
+            kernel_body as decimate_body
         from real_time_sdr_tpu_torch.ops.cuda.frontend_fused import \
             frontend_plain
         from real_time_sdr_tpu_torch.ops.cuda.pll_scan import pll_scan_kernel
@@ -348,7 +386,6 @@ def main() -> None:
     sites = [  # (name, bank, rows, n) at the main path's shapes
         ("if_triple", rx.if_bank, CH, n_if),
         ("stereo_sync", rx.audio.sync.bank, CH, n_if),
-        ("audio_rails", rx.audio.resamp_bank, 2 * CH, n_if),
         ("rds_pilot", rx.rds_path.pilot_bank, CH, n_if),
         ("rds_sync", rx.rds_path.sync.bank, CH, n_if),
         ("rds_baseband_247_640", rx.rds_path.baseband_bank, CH * BLOCKS,
@@ -462,42 +499,73 @@ def main() -> None:
                                        library_ms=None)
     del y, uk, up
 
-    # direct-form decimating FIR at the audio-rail geometry (64 rails x
-    # 12 blocks of IF, K = 101, down = 5), beside the FIR bank there
-    h = rx.audio.resamp_bank.taps[0].contiguous()
-    k_taps, down = h.shape[0], 5
-    xd = torch.randn((2 * CH, k_taps - 1 + n_if), device=dev, generator=gen)
-    dk_ = fir_decimate.launch(xd, h, down)
-    dp_ = fir_decimate_plain(xd, h, down)
-    torch.cuda.synchronize()
-    fd_snr = snr_db(dp_, dk_)
-    fd_err = (dk_ - dp_).abs().max().item()
-    fd_ms = device_ms(torch, lambda: fir_decimate.launch(xd, h, down))
-    fd_plain_ms = device_ms(torch, lambda: fir_decimate_plain(xd, h, down))
-    dbank = make_bank([PolyFIR(h.double().cpu().numpy(), down=down)]).to(dev)
-    fb_ms = device_ms(torch, lambda: fir_bank.launch(xd, dbank.taps,
-                                                     dbank.geometry))
-    fb_out = fir_bank.launch(xd, dbank.taps, dbank.geometry)[:, 0]
-    fd_bound = bound(4 * (xd.numel() + dk_.numel() + k_taps),
-                     2 * k_taps * dk_.numel())
-    w_fd = h.flip(0)[None, None, :].contiguous()
-    fd_lib_ms = device_ms(torch, lambda: torch.nn.functional.conv1d(
-        xd[:, None, :], w_fd, stride=down))
-    print(f"kernel fir_decimate: ({2 * CH}, {xd.shape[1]}) K {k_taps} down "
-          f"{down} -> {tuple(dk_.shape)}: SNR {fd_snr:.1f} dB vs plain, max "
-          f"abs err {fd_err:.3g}; kernel {fd_ms:.4f} ms, plain (conv1d) "
-          f"{fd_plain_ms:.4f} ms; fir_bank at the same geometry "
-          f"{fb_ms:.4f} ms (max abs diff vs fir_decimate "
-          f"{(fb_out - dk_).abs().max().item():.3g}); bound "
-          f"{fd_bound['bound_ms']:.4f} ms ({fd_bound['bound_by']}), one "
-          f"conv1d call {fd_lib_ms:.4f} ms")
-    if not fd_snr > 110.0:
-        fail(f"fir_decimate disagrees with its plain version "
-             f"({fd_snr:.1f} dB)")
-    kernels[fir_decimate.name] = dict(max_abs_err=fd_err, ms=fd_ms,
-                                      plain_ms=fd_plain_ms, **fd_bound,
-                                      library_ms=fd_lib_ms)
-    del xd, dk_, dp_
+    # direct-form decimating FIR (the audio resampler of modes 0-1): mode
+    # 0's rails (64 rails x 12 blocks of IF, K 101, down 5), mode 1's (down
+    # 9), a geometry of the general body, and 1 and 1,000 rows; beside each
+    # conv1d and the FIR bank at the same geometry
+    def check_decimate(label, h, rows, n, down):
+        k_taps = h.shape[0]
+        xd = torch.randn((rows, k_taps - 1 + n), device=dev, generator=gen)
+        yk = fir_decimate.launch(xd, h, down)
+        yp = fir_decimate_plain(xd, h, down)
+        torch.cuda.synchronize()
+        s_ = snr_db(yp, yk)
+        err = (yk - yp).abs().max().item()
+        t_k = device_ms(torch, lambda: fir_decimate.launch(xd, h, down))
+        t_p = device_ms(torch, lambda: fir_decimate_plain(xd, h, down))
+        dbank = make_bank([PolyFIR(h.double().cpu().numpy(),
+                                   down=down)]).to(dev)
+        t_b = device_ms(torch, lambda: fir_bank.launch(xd, dbank.taps,
+                                                       dbank.geometry))
+        same = torch.equal(
+            fir_bank.launch(xd, dbank.taps, dbank.geometry)[:, 0], yk)
+        bnd = bound(4 * (xd.numel() + yk.numel() + k_taps),
+                    2 * k_taps * yk.numel())
+        w_l = h.flip(0)[None, None, :].contiguous()
+        t_l = device_ms(torch, lambda: torch.nn.functional.conv1d(
+            xd[:, None, :], w_l, stride=down))
+        body = decimate_body(k_taps, down)
+        print(f"kernel fir_decimate[{label}]: ({rows}, {xd.shape[1]}) K "
+              f"{k_taps} down {down} -> {tuple(yk.shape)}: SNR {s_:.1f} dB "
+              f"vs plain, max abs err {err:.3g}; body {body}, "
+              f"bit_identical_to_fir_bank {same}; kernel {t_k:.4f} ms, plain "
+              f"(conv1d) {t_p:.4f} ms, fir_bank at the same geometry "
+              f"{t_b:.4f} ms; bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}, {100 * bnd['bound_ms'] / t_k:.0f} % of "
+              f"it reached), one conv1d call {t_l:.4f} ms")
+        if not s_ > 110.0:
+            fail(f"fir_decimate[{label}] disagrees with its plain version "
+                 f"({s_:.1f} dB)")
+        return dict(shape=[rows, xd.shape[1]], k_taps=k_taps, down=down,
+                    body=body, snr_db=s_, max_abs_err=err, ms=t_k,
+                    plain_ms=t_p, fir_bank_ms=t_b, **bnd, library_ms=t_l,
+                    bit_identical_to_fir_bank=same)
+
+    h0 = rx.audio.resamp_bank.taps
+    rx_m1 = Receiver(1, device=dev)
+    h1, n_if1 = rx_m1.audio.audio_bank.taps, rx_m1.cfg.if_block * BLOCKS
+    fd_cases = {
+        "mode0_rails": check_decimate("mode 0 audio rails", h0, 2 * CH,
+                                      n_if, cfg.audio_down),
+        "mode1_rails": check_decimate("mode 1 audio rails", h1, 2 * CH,
+                                      n_if1, rx_m1.cfg.audio_down),
+        "general_down4": check_decimate("general body", h0, 2 * CH, n_if, 4),
+        "one_row": check_decimate("1 row", h0, 1, n_if, cfg.audio_down),
+        "rows_1000": check_decimate("1,000 rows x 1 block", h0, 1000,
+                                    cfg.if_block, cfg.audio_down),
+    }
+    for name in ("mode0_rails", "mode1_rails", "one_row", "rows_1000"):
+        if fd_cases[name]["body"] != "static":
+            fail(f"fir_decimate[{name}] did not take the static body")
+    if fd_cases["general_down4"]["body"] != "general":
+        fail("fir_decimate at down 4 did not take the general body")
+    main_case = fd_cases["mode0_rails"]
+    kernels[fir_decimate.name] = dict(
+        max_abs_err=max(v["max_abs_err"] for v in fd_cases.values()),
+        **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+        cases=fd_cases)
+    del rx_m1
 
     def check_pll(label, xk, c0, p, rows, plain_reps):
         """pll_scan on (xk, c0) against its plain version run on the first
@@ -648,21 +716,28 @@ def main() -> None:
         return
 
     launches = {k.name: 0 for k in KERNELS}
-    by_path, bodies_by_path = {}, {}
+    by_path, bodies_by_path, fd_bodies_by_path = {}, {}, {}
 
     def reset_counts():
         for k in KERNELS:
             k.launches = 0
-        fir_bank.body_launches = dict.fromkeys(fir_bank.body_launches, 0)
+        for k in (fir_bank, fir_decimate):
+            k.body_launches = dict.fromkeys(k.body_launches, 0)
 
     def count_path(path, needed, bodies):
+        """Read the counts of the path just driven. ``needed`` kernels must
+        have launched, through these FIR-bank ``bodies``. ``fir_decimate``
+        must have launched through its static body when it is needed and
+        not at all when it is not (modes 2-3 upsample their audio)."""
         got = {k.name: k.launches for k in KERNELS}
         by_path[path] = got
         bodies_by_path[path] = dict(fir_bank.body_launches)
+        fd_bodies_by_path[path] = dict(fir_decimate.body_launches)
         for name, n in got.items():
             launches[name] += n
         print(f"{path} launches {got}, fir_bank bodies "
-              f"{bodies_by_path[path]}")
+              f"{bodies_by_path[path]}, fir_decimate bodies "
+              f"{fd_bodies_by_path[path]}")
         for name in needed:
             if got[name] <= 0:
                 fail(f"kernel {name} was not launched on the {path} path")
@@ -670,13 +745,21 @@ def main() -> None:
             if bodies_by_path[path][body] <= 0:
                 fail(f"fir_bank's {body} body was not launched on the "
                      f"{path} path")
+        if fir_decimate.name in needed:
+            if fd_bodies_by_path[path]["static"] <= 0:
+                fail(f"fir_decimate's static body was not launched on the "
+                     f"{path} path")
+        elif got[fir_decimate.name] != 0:
+            fail(f"fir_decimate was launched on the {path} path, whose "
+                 "audio resampler upsamples")
 
-    def run_path(path, rxp, segs_p, needed):
+    def run_path(path, rxp, segs_p, needed, min_ps):
         """SEGMENTS chained segments of CH ch x BLOCKS blk through
         ``rxp.run_segment``, each timed with events (H2D included); counts
         reset just before and read just after; output shapes, finite
-        audio and channel 0's PS/PI checked. Returns (outs, states,
-        segment ms, left, right)."""
+        audio, channel 0's PS/PI and PS on at least ``min_ps`` channels
+        (what the port's CPU run decodes on the same shifts) checked.
+        Returns (outs, states, segment ms, left, right)."""
         c = rxp.cfg
         reset_counts()
         st = rxp.init_state(CH)
@@ -712,12 +795,16 @@ def main() -> None:
         nbits = torch.cat([o.rds_nbits for o in outs_p], 1).cpu().numpy()
         decoded = [decode(RdsFramer, bits, nbits, ch_) for ch_ in range(CH)]
         ev = decoded[0]
+        n_ps = sum(e.ps_name == PS for e in decoded)
         print(f"{path} channel 0: PS {ev.ps_name!r}, PI "
               f"{ev.pi and hex(ev.pi)}, PTY {ev.pty!r}, groups "
-              f"{ev.groups_decoded}; PS decoded on "
-              f"{sum(e.ps_name == PS for e in decoded)}/{CH} channels")
+              f"{ev.groups_decoded}; PS decoded on {n_ps}/{CH} channels "
+              f"(the CPU run: {min_ps})")
         if ev.ps_name != PS or ev.pi != PI:
             fail(f"{path}: channel 0 did not decode the station's PS/PI")
+        if n_ps < min_ps:
+            fail(f"{path}: PS decoded on {n_ps} channels, fewer than the "
+                 f"CPU run's {min_ps}")
         return outs_p, states_p, ms, left, right
 
     def vs_cpu(path, rxp, segs_p, outs_p, states_p):
@@ -773,7 +860,9 @@ def main() -> None:
 
     # -- 4. mode-0 path -------------------------------------------------------
     outs, states, seg_ms, left, right = run_path(
-        "mode0", rx, segs, (frontend_fused.name, fir_bank.name))
+        "mode0", rx, segs,
+        (frontend_fused.name, fir_bank.name, fir_decimate.name),
+        PS_CHANNELS[0])
     fs = float(cfg.audio_fs)
     skip = 3 * cfg.audio_block
     sep_l = (band_power(np, left[0, skip:], fs, 440)
@@ -800,7 +889,8 @@ def main() -> None:
         fail(f"the receiver's default tier is {rx1.pll_tier}, not 1")
     outs, states, seg_ms, _, _ = run_path(
         "mode0_tier1", rx1, segs,
-        (frontend_fused.name, fir_bank.name, pll_scan_kernel.name))
+        (frontend_fused.name, fir_bank.name, fir_decimate.name,
+         pll_scan_kernel.name), PS_CHANNELS[0])
     vs_cpu("mode0_tier1", rx1, segs, outs, states)
     med1, _, _ = warm("mode0_tier1", rx1, states[-1], segs, seg_ms, 5)
     print(f"mode-0 warm segment, tier 1 vs tier 3: {med1:.3f} ms vs "
@@ -892,17 +982,23 @@ def main() -> None:
         del xx, dk, dp
         a_up, a_down = cm.audio_up, cm.audio_down
         r_up, r_down = cm.rds_resample
-        for name, bank, rows, n in (
-                (f"mode{mode}_audio_{a_up}_{a_down}", rxm.audio.resamp_bank,
-                 2 * CH, cm.if_block * BLOCKS),
+        # mode 1's audio does not upsample: its resampler is fir_decimate
+        # (checked above at this geometry), not a FIR-bank site
+        audio_site = [] if a_up == 1 else [
+            (f"mode{mode}_audio_{a_up}_{a_down}", rxm.audio.resamp_bank,
+             2 * CH, cm.if_block * BLOCKS)]
+        for name, bank, rows, n in audio_site + [
                 (f"mode{mode}_rds_baseband_{r_up}_{r_down}",
-                 rxm.rds_path.baseband_bank, CH * BLOCKS, cm.if_block)):
+                 rxm.rds_path.baseband_bank, CH * BLOCKS, cm.if_block)]:
             t_k, t_p, err, body, extra = check_site(name, bank, rows, n)
             mode_sites[name] = dict(ms=t_k, plain_ms=t_p, body=body, **extra)
             kernels[fir_bank.name]["max_abs_err"] = max(
                 kernels[fir_bank.name]["max_abs_err"], err)
         outs, states, seg_ms, _, _ = run_path(
-            f"mode{mode}", rxm, segs_m, (frontend_fused.name, fir_bank.name))
+            f"mode{mode}", rxm, segs_m,
+            (frontend_fused.name, fir_bank.name)
+            + ((fir_decimate.name,) if a_up == 1 else ()),
+            PS_CHANNELS[mode])
         vs_cpu(f"mode{mode}", rxm, segs_m, outs, states)
         warm(f"mode{mode}", rxm, states[-1], segs_m, seg_ms, 5)
         del outs, states, segs_m
@@ -995,7 +1091,8 @@ def main() -> None:
         fail(f"unexpected channelizer geometry (static {ch.fold_static}, "
              f"R {ch.fold_R}, J {ch.fold_J})")
     run_wideband("two_stage", ch,
-                 (chan_epilogue.name, frontend_fused.name, fir_bank.name))
+                 (chan_epilogue.name, frontend_fused.name, fir_bank.name,
+                  fir_decimate.name))
     # card against the port's own CPU run on the first 2 blocks
     first = torch.from_numpy(raw[:2 * 2 * cfg.block_size_iq * WB_MULT])
     u8_card, _ = ch.call_u8(*u8_to_rails(first.to(dev)), ch.init_state())
@@ -1014,17 +1111,18 @@ def main() -> None:
         fail("make_wideband_frontend did not pick the fused frontend")
     print(f"fused frontend: lo {wf.lo}, R {wf.r_n}, J {wf.j_w}, weights "
           f"{tuple(wf.w.shape)}")
-    run_wideband("fused", wf, (fir_bank.name,))
-    del wf, wbank, wsegs, raw
+    run_wideband("fused", wf, (fir_bank.name, fir_decimate.name))
+    del wf, wbank, wsegs
 
     # -- 6. the pipe CLI, in a subprocess, at its defaults --------------------
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ)
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
 
-    def run_cli(args_, capture, out_path):
+    def run_cli(args_, capture, out_path, label=None):
         """`python -m real_time_sdr_tpu_torch.cli ARGS < capture > out`:
         (stderr text, PCM bytes); fails on a non-zero exit."""
+        label = label or " ".join(args_)
         t0 = time.perf_counter()
         with open(capture, "rb") as fin, open(out_path, "wb") as fout:
             res = subprocess.run(
@@ -1032,9 +1130,9 @@ def main() -> None:
                  *args_], stdin=fin, stdout=fout, stderr=subprocess.PIPE,
                 text=True, env=env, cwd=root, timeout=300)
         if res.returncode != 0:
-            fail(f"CLI {' '.join(args_)} exited {res.returncode}:\n"
+            fail(f"CLI {label} exited {res.returncode}:\n"
                  f"{res.stderr[-3000:]}")
-        print(f"CLI {' '.join(args_)}: {time.perf_counter() - t0:.1f} s "
+        print(f"CLI {label}: {time.perf_counter() - t0:.1f} s "
               "wall, process start and set-up included")
         with open(out_path, "rb") as f:
             return res.stderr, f.read()
@@ -1069,7 +1167,7 @@ def main() -> None:
         by_path["cli"] = got
         for name, n in got.items():
             launches[name] += n
-        for name in (frontend_fused.name, fir_bank.name,
+        for name in (frontend_fused.name, fir_bank.name, fir_decimate.name,
                      pll_scan_kernel.name):
             if got.get(name, 0) <= 0:
                 fail(f"kernel {name} was not launched by the CLI")
@@ -1106,9 +1204,147 @@ def main() -> None:
             fail("the mode-2 CLI run wrote the wrong PCM byte count")
         print("CLI 2 r --pll-tier 1: PS decoded")
 
+    # -- 7. the wideband CLI at full width, in subprocesses -------------------
+    wb_blocks = BLOCKS * SEGMENTS
+    n_pcm = wb_blocks * cfg.audio_block * 2 * 2     # bytes per station file
+    wb_args = ["0", "r", "--stations=" + ",".join(map(str, offs)),
+               "--wide-fs", str(wide_fs), "--segment", str(BLOCKS), "--stats"]
+    real = {offs.index(st["offset_hz"]): st["ps_name"] for st in stations}
+
+    def run_wb(label, extra, capture, outdir):
+        """One wideband CLI run: (stderr lines, [PCM bytes per station])."""
+        err, _ = run_cli(wb_args + ["--output-dir", outdir] + extra, capture,
+                         outdir + ".stdout",
+                         label=f"0 r --stations=<{WB_STATIONS} offsets> "
+                         f"--wide-fs {wide_fs} --segment {BLOCKS} --stats "
+                         + label)
+        pcm = []
+        for k in range(WB_STATIONS):
+            with open(os.path.join(outdir, f"station_{k}.pcm"), "rb") as f:
+                pcm.append(f.read())
+        lines_ = err.splitlines()
+        # the per-segment times: the first segment holds the process's
+        # set-up (CUDA context, library loads), the later ones are warm
+        print("  cli segments: " + "; ".join(
+            ln.split(": ", 1)[1] for ln in lines_
+            if ln.startswith("block ")))
+        return lines_, pcm
+
+    def wb_launches(lines_):
+        return json.loads(next(ln for ln in lines_ if ln.startswith(
+            "kernel launches: "))[len("kernel launches: "):])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cap = os.path.join(tmp, "wide.raw")
+        raw.tofile(cap)
+        lines, pcm_a = run_wb("", [], cap, os.path.join(tmp, "a"))
+        for line in lines:
+            if line.startswith(("wideband frontend", "total:", "channelized",
+                                "kernel launches")):
+                print(f"  cli: {line}")
+        got = wb_launches(lines)
+        by_path["cli_wideband"] = got
+        for name, n in got.items():
+            launches[name] += n
+        for name in (fir_bank.name, fir_decimate.name, pll_scan_kernel.name):
+            if got.get(name, 0) <= 0:
+                fail(f"kernel {name} was not launched by the wideband CLI")
+        for k, ps_name in real.items():
+            if f"ch{k} ps: {ps_name}" not in lines:
+                fail(f"the wideband CLI did not print station {k}'s PS")
+        if any(len(p) != n_pcm for p in pcm_a):
+            fail(f"the wideband CLI's PCM files are not {n_pcm} bytes each: "
+                 f"{sorted(set(map(len, pcm_a)))}")
+        if lines[-1] != (f"channelized {WB_STATIONS} stations x {wb_blocks} "
+                         "blocks"):
+            fail(f"the wideband CLI ended with {lines[-1]!r}")
+        tot = next(ln for ln in lines if ln.startswith("total:")).split()
+        print(f"wideband CLI on {card}: {WB_STATIONS} stations x {wb_blocks} "
+              f"blocks, PS of stations {sorted(real)} decoded, "
+              f"{WB_STATIONS} PCM files of {n_pcm} bytes; {tot[4]} ms per "
+              f"block, {tot[6]} real time on the {wide_fs / 1e6:g} MS/s "
+              "capture over all 3 segments, the first with the process's "
+              "set-up (tier 1, segments of 12, pinned upload, one segment "
+              "in flight)")
+
+        lines_b, pcm_b = run_wb("--pipeline 4", ["--pipeline", "4"], cap,
+                                os.path.join(tmp, "b"))
+        if pcm_b != pcm_a:
+            fail("--pipeline 4 PCM differs from the first run's")
+        tot_b = next(ln for ln in lines_b if ln.startswith("total:")).split()
+        print(f"wideband CLI --pipeline 4: PCM byte-identical; {tot_b[4]} ms "
+              f"per block, {tot_b[6]} real time")
+
+        # retune station 0 (an empty slot) onto slot 32's transmitter at
+        # segment 1. PS needs ~30 blocks from a cold framer, so this run
+        # plays the capture twice; the other 63 stations' first 36 blocks
+        # must not change by a byte
+        cap2 = os.path.join(tmp, "wide_twice.raw")
+        np.tile(raw, 2).tofile(cap2)
+        lines_c, pcm_c = run_wb(f"--retune 1:0:{offs[32]} (capture twice)",
+                                ["--retune", f"1:0:{offs[32]}"], cap2,
+                                os.path.join(tmp, "c"))
+        mark = f"retuned station 0 -> {offs[32]} Hz at segment 1"
+        if mark not in lines_c:
+            fail("the wideband CLI did not print its retune line")
+        if f"ch0 ps: {real[32]}" not in lines_c[lines_c.index(mark):]:
+            fail("station 0 did not decode slot 32's PS after the retune")
+        if f"ch0 ps: {real[32]}" in lines_c[:lines_c.index(mark)]:
+            fail("station 0 printed slot 32's PS before the retune")
+        if any(pcm_c[k][:n_pcm] != pcm_a[k] or len(pcm_c[k]) != 2 * n_pcm
+               for k in range(1, WB_STATIONS)):
+            fail("--retune of station 0 changed another station's PCM")
+        print(f"wideband CLI --retune 1:0:{offs[32]}: station 0 prints "
+              f"{real[32]!r} after segment 1; the other "
+              f"{WB_STATIONS - 1} PCM files byte-identical over the first "
+              f"{wb_blocks} blocks")
+
+        # checkpoint: 18 blocks, then the rest. The segment boundaries differ
+        # from the first run's (12 + 6 | 12 + 6 against 12 + 12 + 12), so
+        # f32 rounding differs: the three real stations must agree within 1
+        # LSB; an empty slot's audio is the discriminator of a zero signal,
+        # which no rounding bound holds
+        half = raw.shape[0] // 2
+        cap_1, cap_2 = (os.path.join(tmp, f"half{k}.raw") for k in (1, 2))
+        raw[:half].tofile(cap_1)
+        raw[half:].tofile(cap_2)
+        ck = os.path.join(tmp, "ck")
+        lines_d1, pcm_d1 = run_wb("--checkpoint (first 18 blocks)",
+                                  ["--checkpoint", ck], cap_1,
+                                  os.path.join(tmp, "d1"))
+        lines_d2, pcm_d2 = run_wb("--checkpoint (the rest)",
+                                  ["--checkpoint", ck], cap_2,
+                                  os.path.join(tmp, "d2"))
+        if not (f"saved state to {ck}" in lines_d1
+                and f"resumed state from {ck}" in lines_d2
+                and any(ln.startswith(f"resumed {WB_STATIONS} RDS framers")
+                        for ln in lines_d2)):
+            fail("the wideband CLI did not save and resume its checkpoint")
+        joined = [a + b for a, b in zip(pcm_d1, pcm_d2)]
+        if any(len(p) != n_pcm for p in joined):
+            fail("the checkpointed halves do not join to the full length")
+        worst = 0
+        for k in real:
+            a, b = (np.frombuffer(p, "<i2").astype(np.int32)
+                    for p in (pcm_a[k], joined[k]))
+            worst = max(worst, int(np.abs(a - b).max()))
+        same = sum(a == b for a, b in zip(pcm_a, joined))
+        for k, ps_name in real.items():
+            if f"ch{k} ps: {ps_name}" not in lines_d1 + lines_d2:
+                fail(f"station {k}'s PS was not printed across the "
+                     "checkpoint")
+        print(f"wideband CLI --checkpoint, 18 blocks then the rest: the "
+              f"real stations' joined PCM within {worst} LSB of the first "
+              f"run's, {same}/{WB_STATIONS} files byte-identical, PS of "
+              f"{sorted(real)} printed")
+        if worst > 1:
+            fail(f"the checkpointed run differs by {worst} LSB")
+    del raw
+
     if "jax" in sys.modules:
         fail("jax was imported")
     kernels[fir_bank.name]["body_launches_by_path"] = bodies_by_path
+    kernels[fir_decimate.name]["body_launches_by_path"] = fd_bodies_by_path
     rows = []
     for k in KERNELS:
         rows.append(dict(name=k.name, route="cuda", source=k.source,

@@ -4,10 +4,17 @@ stdout, RDS text on stderr.
     rtl_sdr -f 99.9M -s 2.4M - | python -m real_time_sdr_tpu_torch.cli 0 r \\
         | aplay -r 48000 -f S16_LE -c 2
 
-The single-station serving path of ``real_time_sdr_tpu/cli.py`` on the
-port: the same positionals, flags, defaults and stderr lines. It runs on
-the CUDA card unless ``--cpu`` is given; without a card and without
-``--cpu`` it exits with status 2 instead of running on the CPU.
+Both serving paths of ``real_time_sdr_tpu/cli.py`` on the port, with the
+same positionals, flags, defaults and stderr lines: the single-station
+pipe, and with ``--stations`` the wideband multi-station mode
+(``run_wideband``: one wideband capture in, one ``station_<k>.pcm`` per
+station under ``--output-dir``, RDS text as ``ch<k> <kind>: <val>``).
+
+    python -m real_time_sdr_tpu_torch.cli 0 r --stations=-2000000,1500000 \
+        --wide-fs 9600000 --output-dir stations --segment 12 < wide.raw
+
+It runs on the CUDA card unless ``--cpu`` is given; without a card and
+without ``--cpu`` it exits with status 2 instead of running on the CPU.
 
 The host loop reads ``--segment`` blocks per group through the native
 ring-buffered reader, uploads the group (``--staged``: through a ring of
@@ -15,14 +22,16 @@ pinned host buffers with an asynchronous copy), queues the receiver's
 kernels (launches are asynchronous), and starts the PCM and RDS copies
 back into pinned memory. Up to ``--pipeline`` groups stay in flight; a
 drain waits once per group on a CUDA event, then writes the PCM and feeds
-the RDS framer. The multi-station flags (``--stations``, ``--wide-fs``,
-``--output-dir``, ``--retune``) belong to the wideband CLI, which this
-package does not have yet: they exit with status 2.
+the RDS framer. The wideband loop is the same with one (S, ...) PCM tensor
+and one fetch per segment; ``--retune SEG:STATION:HZ`` re-points a station
+of the fused frontend between segments, and ``--checkpoint`` resumes onto
+the grid the saved state was built on (its ``.rds.json`` sidecar names it).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -31,7 +40,8 @@ from collections import deque
 
 import numpy as np
 
-WIDEBAND_FLAGS = ("stations", "wide_fs", "output_dir", "retune")
+# flags that only mean something together with --stations
+WIDEBAND_ONLY_FLAGS = ("wide_fs", "output_dir", "retune")
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -105,18 +115,20 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--monitor-every", type=int, default=4,
                     help="blocks between --monitor snapshots")
     ap.add_argument("--stations", default=None,
-                    help="wideband mode (comma-separated station offsets "
-                         "in Hz): not in this package yet, exits 2")
+                    help="comma-separated station offsets in Hz: treat the "
+                         "input as ONE wideband capture and channelize all "
+                         "stations (with --wide-fs, --output-dir)")
     ap.add_argument("--wide-fs", type=int, default=None,
-                    help="wideband capture sample rate: not in this package "
-                         "yet, exits 2")
+                    help="wideband capture sample rate (integer multiple of "
+                         "the mode's RF rate; default 4x)")
     ap.add_argument("--output-dir", default=None,
-                    help="per-station PCM output directory (wideband mode): "
-                         "not in this package yet, exits 2")
+                    help="per-station PCM output directory (wideband mode)")
     ap.add_argument("--retune", action="append", default=None,
                     metavar="SEG:STATION:HZ",
-                    help="wideband runtime retune: not in this package yet, "
-                         "exits 2")
+                    help="at dispatched segment index SEG (0-based), "
+                         "re-point station STATION to offset HZ (fused "
+                         "wideband frontend only; other stations' DSP state "
+                         "is untouched). Repeatable")
     return ap
 
 
@@ -235,13 +247,11 @@ def main(argv=None) -> int:
         print(f"error: --pipeline must be >= 0, got {args.pipeline}",
               file=sys.stderr)
         return 2
-    given = ["--" + f.replace("_", "-") for f in WIDEBAND_FLAGS
+    given = ["--" + f.replace("_", "-") for f in WIDEBAND_ONLY_FLAGS
              if getattr(args, f) is not None]
-    if given:
-        print(f"error: {', '.join(given)}: the wideband (multi-station) CLI "
-              "is not ported to real_time_sdr_tpu_torch yet (it comes with "
-              "the parallel/wideband slice); use python -m "
-              "real_time_sdr_tpu.cli for wideband captures", file=sys.stderr)
+    if given and args.stations is None:
+        print(f"error: {', '.join(given)} only applies to the wideband "
+              "(multi-station) mode: give --stations too", file=sys.stderr)
         return 2
 
     import torch
@@ -253,19 +263,299 @@ def main(argv=None) -> int:
         return 2
     else:
         device = torch.device("cuda")
-    return _serve(args, torch, device)
-
-
-def _serve(args, torch, device) -> int:
-    from real_time_sdr_tpu_torch.models.rds_framing import RdsFramer
     from real_time_sdr_tpu_torch.models.receiver import Receiver
+    rx = Receiver(args.mode, stereo=args.type in ("s", "r"),
+                  rds=args.type == "r", pll_tier=args.pll_tier,
+                  rds_timing=args.rds_timing, device=device)
+    if args.stations is not None:
+        return run_wideband(args, torch, device, rx, rx.cfg)
+    return _serve(args, torch, device, rx)
+
+
+def _print_launches() -> None:
+    """The kernels' launch counts of this process, one JSON line."""
+    from real_time_sdr_tpu_torch.ops.cuda import KERNELS
+    print("kernel launches: " + json.dumps(
+        {k.name: k.launches for k in KERNELS}), file=sys.stderr)
+
+
+def _read_into(fin, view) -> int:
+    """Fill ``view`` from ``fin`` (a pipe may deliver it in pieces); returns
+    the bytes read, short only at EOF."""
+    got = 0
+    while got < len(view):
+        n = fin.readinto(view[got:])
+        if not n:
+            break
+        got += n
+    return got
+
+
+def run_wideband(args, torch, device, rx, cfg) -> int:
+    """Multi-station mode: channelize a wideband capture and decode every
+    station in parallel through a channel bank."""
+    from real_time_sdr_tpu_torch.models.rds_framing import RdsFramer
+    from real_time_sdr_tpu_torch.models.wideband_frontend import (
+        FusedWidebandFrontend, make_wideband_frontend)
+    from real_time_sdr_tpu_torch.parallel.channel import ChannelBank
     from real_time_sdr_tpu_torch.utils import state as state_util
     from real_time_sdr_tpu_torch.utils.audio import mono_pcm, stereo_pcm
 
-    stereo = args.type in ("s", "r")
-    rds = args.type == "r"
-    rx = Receiver(args.mode, stereo=stereo, rds=rds, pll_tier=args.pll_tier,
-                  rds_timing=args.rds_timing, device=device)
+    if args.io_depth != 4 or args.drop_oldest or args.monitor:
+        print("warning: --io-depth/--drop-oldest/--monitor apply to the "
+              "single-station native I/O path and are ignored in "
+              "--stations mode", file=sys.stderr)
+    try:
+        offsets = [int(x) for x in args.stations.split(",")]
+    except ValueError:
+        print(f"error: --stations must be comma-separated integer Hz "
+              f"offsets, got {args.stations!r}", file=sys.stderr)
+        return 2
+    wide_fs = args.wide_fs or 4 * cfg.rf_fs
+    if wide_fs % cfg.rf_fs != 0:
+        print(f"error: --wide-fs {wide_fs} must be an integer multiple of "
+              f"the mode RF rate {cfg.rf_fs}", file=sys.stderr)
+        return 2
+    fe = make_wideband_frontend(cfg, wide_fs, offsets).to(device)
+    fused = isinstance(fe, FusedWidebandFrontend)
+    print(f"wideband frontend: "
+          f"{'fused one-matmul' if fused else 'two-stage uint8'} path",
+          file=sys.stderr)
+    retunes: dict[int, list[tuple[int, int]]] = {}
+    if args.retune:
+        try:
+            for spec in args.retune:
+                a, b, c = spec.split(":")
+                if not 0 <= int(b) < len(offsets):
+                    raise ValueError(spec)
+                retunes.setdefault(int(a), []).append((int(b), int(c)))
+        except ValueError:
+            print(f"error: --retune takes SEG:STATION:HZ with STATION < "
+                  f"{len(offsets)}, got {args.retune!r}", file=sys.stderr)
+            return 2
+        if not fused:
+            print("error: --retune requires the fused wideband frontend "
+                  "(an ineligible grid forces the two-stage path, whose "
+                  "grid cannot move)", file=sys.stderr)
+            return 2
+    n_st = len(offsets)
+    bank = ChannelBank(rx, n_st)
+
+    def new_framer(k: int):
+        return RdsFramer(on_event=lambda kind, val: print(
+            f"ch{k} {kind}: {val}", file=sys.stderr),
+            correct_bursts=args.rds_correct)
+
+    framers = [new_framer(k) for k in range(n_st)] if rx.rds else None
+    block_pairs = cfg.block_size_iq * fe.decim
+    block_bytes = 2 * block_pairs
+    budget = cfg.block_size_iq / cfg.rf_fs
+    fstate = fe.init_state()
+    bstate = bank.init_state()
+    if args.checkpoint:
+        framers, load_state = _resume_wideband(args, fe, fused, offsets,
+                                               framers, new_framer)
+        try:
+            if load_state:
+                fstate, bstate = state_util.load_state(args.checkpoint,
+                                                       (fstate, bstate))
+                print(f"resumed state from {args.checkpoint}",
+                      file=sys.stderr)
+        except FileNotFoundError:
+            pass
+        except Exception as e:  # shape-incompatible or corrupt npz: never
+            # fatal, start fresh
+            print(f"warning: could not resume DSP state ({e!r}); "
+                  "starting fresh", file=sys.stderr)
+
+    outdir = args.output_dir or "."
+    os.makedirs(outdir, exist_ok=True)
+    seg_n = max(1, args.segment)
+    n_blocks = 0
+    t_total = 0.0
+
+    def pcm_of(out):
+        return (stereo_pcm(out.left, out.right) if rx.stereo
+                else mono_pcm(out.mono))
+
+    if args.warmup:
+        t0 = time.perf_counter()
+        silent = torch.full((seg_n * block_bytes,), 128, dtype=torch.uint8,
+                            device=device)
+        _, wout, _ = bank.run_wideband_u8(bank.init_state(), fe, silent,
+                                          fe.init_state())   # discarded
+        pcm_of(wout).cpu()
+        print(f"warmed up in {time.perf_counter() - t0:.1f} s",
+              file=sys.stderr)
+
+    upload = _Uploader(torch, device, seg_n * block_bytes, args.pipeline + 2,
+                       args.staged != "0")
+    with contextlib.ExitStack() as files:
+        fin = (sys.stdin.buffer if args.input == "-"
+               else files.enter_context(open(args.input, "rb")))
+        outs = [files.enter_context(
+            open(os.path.join(outdir, f"station_{k}.pcm"), "wb"))
+            for k in range(n_st)]
+        # (host tensors, event, blocks) per segment in flight; the device
+        # runs the segments in order, so they complete in order
+        in_flight: deque = deque()
+
+        def drain(k: int) -> None:
+            for _ in range(k):
+                (pcm, nbits, bits), ev, g = in_flight.popleft()
+                if ev is not None:
+                    ev.synchronize()   # the only wait on the device
+                pcm = pcm.numpy()
+                if framers is not None:
+                    nbits, bits = nbits.numpy(), bits.numpy()
+                for st in range(n_st):
+                    pcm[st].tofile(outs[st])
+                    if framers is not None:
+                        for j in range(g):
+                            if nbits[st, j] > 0:
+                                framers[st].feed(bits[st, j, :nbits[st, j]])
+
+        buf = bytearray(seg_n * block_bytes)
+        seg_i = 0
+        while True:
+            if seg_i in retunes:
+                # drain first: pending outputs belong to the old grid and
+                # must reach the old framers before the station re-points
+                drain(len(in_flight))
+                for si, hz in retunes.pop(seg_i):
+                    fe.retune(si, hz)
+                    if framers is not None:
+                        framers[si] = new_framer(si)
+                    print(f"retuned station {si} -> {hz} Hz at segment "
+                          f"{seg_i}", file=sys.stderr)
+            # clamp to --max-blocks, and keep the blocking pipe read OUT of
+            # the timed span (a paced live source would otherwise be
+            # misreported as barely real-time)
+            want = seg_n
+            if args.max_blocks:
+                want = min(want, args.max_blocks - n_blocks)
+                if want <= 0:
+                    break
+            view = memoryview(buf)[:want * block_bytes]
+            g = _read_into(fin, view) // block_bytes
+            if not g:
+                break
+            t0 = time.perf_counter()
+            # an EOF partial segment runs at its exact shape: the real
+            # blocks' outputs do not depend on padding, and nothing is
+            # recompiled
+            raw = np.frombuffer(buf, dtype=np.uint8, count=g * block_bytes)
+            bstate, out, fstate = bank.run_wideband_u8(
+                bstate, fe, upload(raw), fstate)
+            seg_i += 1
+            nbits = bits = None
+            if framers is not None:
+                nbits = out.rds_nbits.reshape(n_st, g)
+                bits = out.rds_bits.reshape(n_st, g, -1)
+            # ONE batched (S, ...) PCM tensor and one fetch per segment
+            host, ev = _fetch(torch, device, [pcm_of(out), nbits, bits])
+            in_flight.append((host, ev, g))
+            if len(in_flight) > args.pipeline:
+                drain(max(1, (len(in_flight) + 1) // 2))
+            n_blocks += g
+            dt = time.perf_counter() - t0
+            t_total += dt
+            if args.stats:
+                print(f"block {n_blocks}: {dt*1e3:.2f} ms "
+                      f"({g*budget/dt:.1f}x real time)", file=sys.stderr)
+        drain(len(in_flight))
+    if args.checkpoint:
+        state_util.save_state(args.checkpoint, (fstate, bstate))
+        # fe.offsets, not the parsed --stations list: --retune re-points
+        # stations mid-stream and the sidecar must describe the grid the
+        # saved state was built on. Written with or without RDS, so a
+        # resume always knows the grid.
+        _atomic_json(args.checkpoint + ".rds.json",
+                     {"kind": "wideband", "stations": list(fe.offsets),
+                      "framers": [fr.state_dict() for fr in framers or []]})
+        print(f"saved state to {args.checkpoint}", file=sys.stderr)
+    if args.stats and n_blocks:
+        print(f"total: {n_blocks} blocks, avg {t_total/n_blocks*1e3:.2f} ms"
+              f"/block, {budget*n_blocks/t_total:.1f}x real time",
+              file=sys.stderr)
+        if device.type == "cuda":
+            _print_launches()
+    print(f"channelized {n_st} stations x {n_blocks} blocks",
+          file=sys.stderr)
+    return 0
+
+
+def _resume_wideband(args, fe, fused, offsets, framers, new_framer):
+    """Read ``<checkpoint>.rds.json`` and put the frontend on the grid the
+    checkpoint was saved on, so DSP state, framers and frontend never mix
+    two grids. Returns ``(framers, load_state)``: the framers to go on with
+    (loaded when the sidecar holds them) and whether the DSP state may be
+    loaded. It may not when the saved grid cannot be resumed (another
+    station count, another grid on the two-stage frontend, whose grid
+    cannot move, or an offset the fused frontend cannot retune to): then
+    everything starts fresh. Without a sidecar the grid is taken to be
+    ``--stations``; a corrupt one rebuilds every framer."""
+    path = args.checkpoint + ".rds.json"
+
+    def fresh():
+        return (None if framers is None
+                else [new_framer(k) for k in range(len(offsets))])
+
+    try:
+        with open(path) as f:
+            d = json.load(f)
+        saved = [int(x) for x in d["stations"]]
+        states = list(d["framers"])
+    except FileNotFoundError:
+        return framers, True
+    except Exception as e:  # truncated/corrupt sidecar: never fatal
+        print(f"warning: could not resume RDS framer state ({e!r});"
+              " starting fresh", file=sys.stderr)
+        return fresh(), True
+    if d.get("kind") != "wideband" or len(saved) != len(offsets):
+        print(f"warning: {path} (kind {d.get('kind')!r}, stations {saved}) "
+              f"does not match --stations {offsets}; starting fresh",
+              file=sys.stderr)
+        return framers, False
+    moved = [(k, hz) for k, hz in enumerate(saved) if hz != offsets[k]]
+    if moved and not fused:
+        print(f"warning: {path} was saved on the grid {saved}, not "
+              f"--stations {offsets}, and the two-stage frontend's grid "
+              "cannot move; starting fresh", file=sys.stderr)
+        return framers, False
+    try:
+        for k, hz in moved:
+            fe.retune(k, hz)
+    except ValueError as e:   # an offset off this frontend's raster
+        for k, hz in enumerate(offsets):
+            if fe.offsets[k] != hz:
+                fe.retune(k, hz)
+        print(f"warning: cannot resume onto the saved grid {saved} ({e}); "
+              "starting fresh", file=sys.stderr)
+        return framers, False
+    for k, hz in moved:
+        print(f"resumed onto the saved grid: station {k} -> {hz} Hz",
+              file=sys.stderr)
+    if framers is not None and states:
+        try:
+            for fr, fd in zip(framers, states):
+                fr.load_state_dict(fd)
+        except Exception as e:  # some framers may be half-loaded: rebuild
+            # them all, so "starting fresh" is true
+            print(f"warning: could not resume RDS framer state ({e!r});"
+                  " starting fresh", file=sys.stderr)
+            return fresh(), True
+        print(f"resumed {min(len(framers), len(states))} RDS framers from "
+              f"{path}", file=sys.stderr)
+    return framers, True
+
+
+def _serve(args, torch, device, rx) -> int:
+    from real_time_sdr_tpu_torch.models.rds_framing import RdsFramer
+    from real_time_sdr_tpu_torch.utils import state as state_util
+    from real_time_sdr_tpu_torch.utils.audio import mono_pcm, stereo_pcm
+
+    stereo, rds = rx.stereo, rx.rds
     cfg = rx.cfg
     seg_n = max(1, args.segment)
     block_bytes = 2 * cfg.block_size_iq
@@ -466,9 +756,7 @@ def _serve(args, torch, device) -> int:
                   f"{budget*1e3:.2f} ms block deadline "
                   f"(dropped {reader.dropped})", file=sys.stderr)
         if device.type == "cuda":
-            from real_time_sdr_tpu_torch.ops.cuda import KERNELS
-            print("kernel launches: " + json.dumps(
-                {k.name: k.launches for k in KERNELS}), file=sys.stderr)
+            _print_launches()
     return 0
 
 

@@ -5,8 +5,13 @@ Port of ``real_time_sdr_tpu/models/audio.py``. The stereo chain: pilot BPF
 tier 3 feedforward sync) -> 38 kHz carrier;
 stereo BPF 22-54 kHz -> x carrier x2 -> baseband L-R; mono through an
 all-pass delay for group-delay alignment; both rails resampled to the audio
-rate in ONE FIR-bank call (the rails stacked as batch rows); L = M+S,
+rate in ONE kernel launch (the rails stacked as batch rows); L = M+S,
 R = M-S.
+
+The audio resampler is the direct-form decimating FIR where the mode does
+not upsample (``cfg.audio_up == 1``: modes 0 and 1) and the polyphase FIR
+bank otherwise (modes 2-3); the configuration alone decides, once, in
+``_audio_resampler``. Both have the same call contract and carry.
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ from torch import nn
 from real_time_sdr_tpu_torch import config as C
 from real_time_sdr_tpu_torch.config import ReceiverConfig
 from real_time_sdr_tpu_torch.ops import filters
-from real_time_sdr_tpu_torch.ops.fir import PolyFIR, make_bank, state_len
+from real_time_sdr_tpu_torch.ops.fir import (DecimatingFIR, PolyFIR,
+                                             make_bank, state_len)
 from real_time_sdr_tpu_torch.ops.pll import PllCarry, PllParams
 from real_time_sdr_tpu_torch.ops.sync import FFSyncCarry, carrier_sync
 
@@ -32,6 +38,11 @@ def _audio_fir(cfg: ReceiverConfig) -> PolyFIR:
     h = filters.design_lpf(cfg.if_fs * up, cfg.audio_fc, cfg.rf_taps * up,
                            gain=up)
     return PolyFIR(h, up=up, down=cfg.audio_down)
+
+
+def _audio_resampler(fir: PolyFIR) -> nn.Module:
+    """The kernel site behind an audio FIR: ``(x, tail) -> ([y], tail)``."""
+    return DecimatingFIR(fir) if fir.up == 1 else make_bank([fir])
 
 
 def _zeros(batch: int, n: int, device) -> torch.Tensor:
@@ -49,7 +60,7 @@ class MonoPath(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.audio_fir = _audio_fir(cfg)
-        self.audio_bank = make_bank([self.audio_fir])
+        self.audio_bank = _audio_resampler(self.audio_fir)
 
     def init_state(self, batch: int) -> MonoState:
         return MonoState(_zeros(batch, self.audio_fir.tail_len,
@@ -83,7 +94,7 @@ class StereoPath(nn.Module):
         self.delay_fir = PolyFIR(filters.design_apf(cfg.rf_taps))
         self.mono_fir = _audio_fir(cfg)   # serves both rails
         self.pb_bank = make_bank([self.pilot_fir, self.band_fir])
-        self.resamp_bank = make_bank([self.mono_fir])
+        self.resamp_bank = _audio_resampler(self.mono_fir)
         self.pll_params = PllParams(freq=int(C.PILOT_FREQ), fs=fs_if,
                                     nco_scale=2.0, norm_bw=C.PLL_BW_STEREO)
         self.sync = carrier_sync(self.pll_params, pll_tier)

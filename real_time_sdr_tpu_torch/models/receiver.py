@@ -66,6 +66,7 @@ class Receiver(nn.Module):
                              f"or 3 (feedforward); got {pll_tier!r}")
         self.cfg = cfg
         self.stereo = stereo
+        self.rds = bool(rds)
         self.pll_tier = pll_tier
         self.device = resolve_device(device)
         self.frontend = Frontend(cfg)

@@ -49,7 +49,7 @@ _SIGNATURES = {
     # xx, h, y, C, L, K, down, n_out, stream
     "sdr_fir_decimate": ([_P] * 3 + [_I] * 5 + [_P], ctypes.c_int),
     # K, down -> shared-memory bytes of one fir_decimate block
-    "sdr_fir_decimate_smem": ([_I, _I], ctypes.c_int),
+    "sdr_fir_decimate_smem": ([_I, _I], _LL),
     # x, ldx, out, C, N, carry in (6), carry out (6), kp, ki, fr, fsr,
     # ang_scale, nco_scale, phase_adjust, four_pi, stream
     "sdr_pll_scan": ([_P, _LL, _P, _I, _I] + [_P] * 12 + [_F] * 2 + [_I] * 2

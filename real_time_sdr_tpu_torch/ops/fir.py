@@ -20,6 +20,8 @@ single-nonzero-tap filter (the all-pass delay) lowers to a scaled slice.
   matmul (or the delay slice) on any device.
 - ``FIRBank`` / ``make_bank``: an nn.Module holding the taps and weights
   as buffers; on a CUDA tensor it launches the FIR-bank kernel.
+- ``DecimatingFIR``: one up = 1 FIR bound to the direct-form decimating
+  kernel (``ops/cuda/fir_kernels.py``), with the bank's call contract.
 - ``DualPhaseFIR``: the frontend's decimating I/Q LPF applied straight to
   the interleaved u8 stream, the plain half of the fused frontend.
 """
@@ -33,8 +35,10 @@ from torch import nn
 from real_time_sdr_tpu_torch.ops.cuda.fir_bank import (MAX_NF, BankGeometry,
                                                        fir_bank,
                                                        fir_bank_plain)
+from real_time_sdr_tpu_torch.ops.cuda.fir_kernels import fir_decimate
 
-__all__ = ["state_len", "PolyFIR", "FIRBank", "make_bank", "DualPhaseFIR"]
+__all__ = ["state_len", "PolyFIR", "FIRBank", "make_bank", "DecimatingFIR",
+           "DualPhaseFIR"]
 
 TARGET_FRAME = 128  # outputs per frame of the plain framed matmul (~R)
 
@@ -168,6 +172,36 @@ class FIRBank(nn.Module):
 def make_bank(firs: list[PolyFIR]) -> FIRBank:
     """Bind same-geometry FIRs to one kernel launch per call."""
     return FIRBank(firs)
+
+
+class DecimatingFIR(nn.Module):
+    """One up = 1 FIR bound to the direct-form decimating kernel.
+
+    ``fir(x, tail) -> ([y], new_tail)``: a one-filter bank's contract (the
+    carry is the last K-1 input samples; every leading dim of x is a batch
+    row), so a site takes either. x's length must be a multiple of
+    ``down``. The taps are a buffer, so ``.to(device)`` moves them.
+    """
+
+    def __init__(self, fir: PolyFIR):
+        super().__init__()
+        if fir.up != 1 or fir.single_tap:
+            raise ValueError("the decimating kernel takes an up = 1 FIR with "
+                             f"more than one tap, got up={fir.up}")
+        self.down = fir.down
+        self.num_taps = fir.num_taps
+        self.register_buffer("taps", torch.as_tensor(
+            fir.h.astype(np.float32)))
+
+    @property
+    def tail_len(self) -> int:
+        return self.num_taps - 1
+
+    def forward(self, x: torch.Tensor, tail: torch.Tensor):
+        xx = torch.cat([tail, x.to(tail.dtype)], dim=-1)
+        y = fir_decimate(xx.reshape(-1, xx.shape[-1]), self.taps, self.down)
+        return ([y.reshape(x.shape[:-1] + y.shape[-1:])],
+                _tail_of(xx, self.tail_len))
 
 
 class DualPhaseFIR(nn.Module):

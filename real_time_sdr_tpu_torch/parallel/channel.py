@@ -17,7 +17,9 @@ from __future__ import annotations
 import torch
 
 from real_time_sdr_tpu_torch.models.channelizer import Channelizer
-from real_time_sdr_tpu_torch.models.receiver import Receiver, ReceiverState
+from real_time_sdr_tpu_torch.models.receiver import (Receiver,
+                                                     ReceiverOutput,
+                                                     ReceiverState)
 from real_time_sdr_tpu_torch.models.wideband_frontend import (
     FusedWidebandFrontend, u8_to_rails)
 
@@ -35,6 +37,33 @@ class ChannelBank:
 
     def init_state(self) -> ReceiverState:
         return self.rx.init_state(self.n)
+
+    def place(self, arr) -> torch.Tensor:
+        """A (C, ...) or (B, C, ...) channel-major array as a tensor on the
+        receiver's device (one device: nothing to shard)."""
+        return torch.as_tensor(arr).to(self.rx.device)
+
+    def step(self, state: ReceiverState, blocks: torch.Tensor):
+        """blocks: (C, 2*block_size_iq) uint8, one block per channel."""
+        self._rows(blocks, "blocks")
+        return self.rx.step(state, blocks)
+
+    def run(self, state: ReceiverState, blocks: torch.Tensor):
+        """blocks: (B, C, 2*block_size_iq) uint8: one ``step`` per block, in
+        order. Returns (final_state, ReceiverOutput) with every output
+        stacked on a leading block axis, e.g. left (B, C, audio_block),
+        rds_nbits (B, C)."""
+        if blocks.ndim != 3 or blocks.shape[0] == 0:
+            raise ValueError(f"blocks must be (B, C, n) with B >= 1, got "
+                             f"{tuple(blocks.shape)}")
+        outs = []
+        for b in range(blocks.shape[0]):
+            state, out = self.step(state, blocks[b])
+            outs.append(out)
+        stacked = ReceiverOutput(*(
+            None if leaves[0] is None else torch.stack(leaves, dim=0)
+            for leaves in zip(*outs)))
+        return state, stacked
 
     def _rows(self, x: torch.Tensor, what: str) -> None:
         if x.ndim != 2 or x.shape[0] != self.n:

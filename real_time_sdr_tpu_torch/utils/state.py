@@ -20,6 +20,10 @@ order, ``None`` leaves dropped), the leaves' own dtypes, and a
 ``__treedef__`` entry that neither loader reads back. A state saved with
 the same shapes as a JAX state (e.g. the single-station CLI's, saved
 without its channel axis) loads with JAX's ``load_state`` and vice versa.
+
+A tree is a state class, or a plain tuple or list of trees (walked in
+order, as ``jax.tree_util`` does): the wideband CLI's checkpoint is the
+pair ``(frontend state, bank state)``.
 """
 
 from __future__ import annotations
@@ -56,6 +60,8 @@ def map_state(tree, leaf_fn):
         return None
     fields = getattr(tree, "_fields", None)
     if fields is None:
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(map_state(child, leaf_fn) for child in tree)
         return leaf_fn(tree)
     name = type(tree).__name__
     cls = _CLASSES.get(name)
@@ -83,7 +89,7 @@ def _leaves(tree) -> list:
     """Array leaves in jax.tree_util flatten order (None dropped)."""
     if tree is None:
         return []
-    if getattr(tree, "_fields", None) is None:
+    if not isinstance(tree, (tuple, list)):
         return [tree]
     return [leaf for child in tree for leaf in _leaves(child)]
 
@@ -91,9 +97,10 @@ def _leaves(tree) -> list:
 def _structure(tree) -> str:
     if tree is None:
         return "None"
-    if getattr(tree, "_fields", None) is None:
+    if not isinstance(tree, (tuple, list)):
         return "*"
-    return f"{type(tree).__name__}({','.join(map(_structure, tree))})"
+    name = type(tree).__name__ if hasattr(tree, "_fields") else ""
+    return f"{name}({','.join(map(_structure, tree))})"
 
 
 def _npz_path(path: str) -> str:

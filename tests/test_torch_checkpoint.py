@@ -10,6 +10,11 @@
   keys, shapes and dtypes equal those of a JAX file of the same receiver.
 - A file whose leaves do not fit the receiver raises ``ValueError`` (the
   CLI then warns and starts fresh).
+- Plain tuples and lists of states (the wideband CLI saves the pair
+  ``(frontend state, bank state)``) walk in ``jax.tree_util``'s flatten
+  order through ``map_state``, ``save_state`` and ``load_state``; a JAX
+  wideband checkpoint loads into the port and the port's back into JAX,
+  leaf for leaf, for both wideband frontends.
 """
 
 import json
@@ -20,13 +25,21 @@ import numpy as np
 import pytest
 import torch
 
+from conftest import mk_channelizer
 from real_time_sdr_tpu.models.rds_framing import RdsFramer as JRdsFramer
 from real_time_sdr_tpu.models.receiver import Receiver as JReceiver
+from real_time_sdr_tpu.models.wideband_frontend import \
+    FusedWidebandFrontend as JFused
+from real_time_sdr_tpu.parallel.channel import ChannelBank as JBank
 from real_time_sdr_tpu.utils import state as jstate
 from real_time_sdr_tpu.utils import synth as jsynth
 from real_time_sdr_tpu.utils.audio import stereo_pcm as jstereo_pcm
 from real_time_sdr_tpu_torch import cli
+from real_time_sdr_tpu_torch.models.channelizer import Channelizer
 from real_time_sdr_tpu_torch.models.receiver import Receiver
+from real_time_sdr_tpu_torch.models.wideband_frontend import \
+    FusedWidebandFrontend
+from real_time_sdr_tpu_torch.parallel.channel import ChannelBank
 from real_time_sdr_tpu_torch.utils import state as tstate
 
 
@@ -159,3 +172,92 @@ def test_save_load_round_trip_and_mismatch(tmp_path, capsys):
     assert _cli(["0", "m", "--checkpoint", path], raw,
                 tmp_path / "m.pcm") == 0
     assert "could not resume DSP state" in capsys.readouterr().err
+
+
+def _filled(tree, seed):
+    """The tree with every leaf replaced by seeded values of its shape and
+    dtype (numpy leaves)."""
+    rng = np.random.default_rng(seed)
+
+    def fill(leaf):
+        a = np.asarray(leaf)
+        if a.dtype == np.bool_:
+            return rng.integers(0, 2, a.shape).astype(np.bool_)
+        if np.issubdtype(a.dtype, np.integer):
+            return rng.integers(0, 100, a.shape).astype(a.dtype)
+        return rng.standard_normal(a.shape).astype(a.dtype)
+    return jax.tree_util.tree_map(fill, tree)
+
+
+@pytest.mark.parametrize("kind", ["tuple", "list", "nested"])
+def test_tuple_and_list_trees(kind, tmp_path):
+    """A plain tuple or list of states is a tree: ``map_state`` rebuilds the
+    same container, the leaves come in ``jax.tree_util``'s order (None
+    dropped), and ``save_state`` / ``load_state`` round-trip it."""
+    rx = Receiver(0, stereo=True, rds=True)
+    a = tstate.state_from_numpy(_filled(tstate.state_to_numpy(
+        rx.init_state(2)), 1))
+    b = tstate.state_from_numpy(_filled(tstate.state_to_numpy(
+        Receiver(0).init_state(1)), 2))
+    tree = {"tuple": (a, b), "list": [a, b], "nested": (a, [b, None])}[kind]
+    want = jax.tree_util.tree_leaves(tree)
+    got = tstate._leaves(tree)
+    assert len(got) == len(want) and all(x is y for x, y in zip(got, want))
+    mapped = tstate.map_state(tree, lambda t: t.clone())
+    assert type(mapped) is type(tree) and len(mapped) == len(tree)
+    assert type(mapped[0]).__name__ == "ReceiverState"
+    if kind == "nested":
+        assert type(mapped[1]) is list and mapped[1][1] is None
+    for x, y in zip(jax.tree_util.tree_leaves(mapped), want):
+        assert x is not y and x.dtype == y.dtype and torch.equal(x, y)
+    path = str(tmp_path / "pair.npz")
+    tstate.save_state(path, tree)
+    like = tstate.map_state(tree, torch.zeros_like)
+    back = tstate.load_state(path, like)
+    assert type(back) is type(tree)
+    for x, y in zip(jax.tree_util.tree_leaves(back), want):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    with pytest.raises(ValueError, match="leaves"):
+        tstate.load_state(path, tree[0])
+
+
+@pytest.mark.parametrize("frontend", ["fused", "two_stage"])
+def test_wideband_checkpoint_cross_loads(frontend, tmp_path):
+    """The wideband CLI's checkpoint, ``(frontend state, bank state)``: a
+    file JAX's ``save_state`` wrote loads into the port with leaf i equal to
+    ``jax.tree_util.tree_flatten``'s leaf i, and the file the port writes
+    back loads with JAX's ``load_state``, exactly, for both frontends."""
+    jrx = JReceiver(0, stereo=True, rds=True, pll_tier=3)
+    rx = Receiver(0, stereo=True, rds=True, pll_tier=3)
+    offs = [-450_000, 150_000, 450_000]
+    wide_fs = 4 * rx.cfg.rf_fs
+    if frontend == "fused":
+        jfe = JFused(jrx.cfg, wide_fs, offs)
+        fe = FusedWidebandFrontend(rx.cfg, wide_fs, offs)
+    else:
+        jfe = mk_channelizer(jrx.cfg, wide_fs, offs, fold=True)
+        fe = Channelizer(rx.cfg, wide_fs, offs)
+    jlike = (jfe.init_state(), JBank(jrx, 3).init_state())
+    like = (fe.init_state(), ChannelBank(rx, 3).init_state())
+    jpair = _filled(jlike, 7)
+    jpath = str(tmp_path / "jax_wb.npz")
+    jstate.save_state(jpath, jpair)
+    pair = tstate.load_state(jpath, like)
+    assert type(pair) is tuple and len(pair) == 2
+    assert type(pair[0]).__name__ == type(jlike[0]).__name__
+    jleaves = jax.tree_util.tree_leaves(jpair)
+    leaves = tstate._leaves(pair)
+    assert len(leaves) == len(jleaves)
+    for t, a in zip(leaves, jleaves):
+        np.testing.assert_array_equal(t.numpy(), a)
+        assert t.numpy().dtype == a.dtype
+    ppath = str(tmp_path / "port_wb")          # the .npz suffix is added
+    tstate.save_state(ppath, pair)
+    back = jstate.load_state(ppath, jlike)
+    for a, b in zip(jax.tree_util.tree_leaves(back), jleaves):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    with np.load(ppath + ".npz") as x, np.load(jpath) as y:
+        assert sorted(x.files) == sorted(y.files)
+        for k in x.files:
+            if k != "__treedef__":
+                assert x[k].shape == y[k].shape and x[k].dtype == y[k].dtype

@@ -14,7 +14,10 @@ two bodies (the receiver's geometries, any other); FIR
 bank > 110 dB at every site of the mode-0 slice and at the tiled body's
 edge geometries (f32 sums in another order than the plain SGEMM's), the
 channelizer epilogue byte-equal (it rounds every product and sum as torch
-eager does), the direct-form decimating FIR > 110 dB, and the receiver on
+eager does), the direct-form decimating FIR > 110 dB (through its static
+bodies at the two audio geometries and its general body, K 2-191, 1 to
+17,640 outputs and around a block's edge, 1 / 32 / 70,000 rows, unaligned
+and odd row starts), and the receiver on
 the card against its own CPU run: audio > 60 dB, RDS bits equal. The
 two-stage wideband path's u8 station streams agree with the CPU run within
 1 LSB on < 1 % of bytes (the fold matmul sums in another order on the
@@ -42,10 +45,13 @@ from real_time_sdr_tpu_torch.ops.cuda.chan_epilogue import chan_epilogue_plain
 from real_time_sdr_tpu_torch.ops.cuda.fir_bank import (TILED_TILE,
                                                        fir_bank_plain,
                                                        kernel_body)
-from real_time_sdr_tpu_torch.ops.cuda.fir_kernels import fir_decimate_plain
+from real_time_sdr_tpu_torch.ops.cuda import _build, fir_kernels
+from real_time_sdr_tpu_torch.ops.cuda.fir_kernels import (STATIC_TILE,
+                                                          fir_decimate_plain)
 from real_time_sdr_tpu_torch.ops.cuda.frontend_fused import (TILE,
                                                             frontend_plain)
-from real_time_sdr_tpu_torch.ops.fir import DualPhaseFIR, PolyFIR, make_bank
+from real_time_sdr_tpu_torch.ops.fir import (DecimatingFIR, DualPhaseFIR,
+                                             PolyFIR, make_bank)
 from real_time_sdr_tpu_torch.ops.cuda import pll_scan_kernel
 from real_time_sdr_tpu_torch.ops.pll import (PllCarry, PllParams, pll_init,
                                              pll_scan_plain)
@@ -55,7 +61,8 @@ from real_time_sdr_tpu_torch.utils.state import map_state
 
 pytestmark = pytest.mark.cuda
 
-# the FIR-bank sites of the stereo + RDS receiver: attribute path -> rows
+# the FIR sites of the stereo + RDS receiver: attribute path -> rows (the
+# audio resampler is the decimating FIR at modes 0-1, a bank at modes 2-3)
 SITES = {
     "if_bank": 2, "audio.sync.bank": 2, "audio.resamp_bank": 4,
     "rds_path.pilot_bank": 2, "rds_path.sync.bank": 2,
@@ -76,6 +83,20 @@ def card():
     rx = Receiver(0, stereo=True, rds=True, pll_tier=3, device="cuda")
     iq, _ = synth.station_iq(rx.cfg, 12, ps_name="CARDTEST")
     return rx, torch.from_numpy(iq)
+
+
+def _check_decimating_site(site, xx):
+    """A DecimatingFIR site's kernel against its plain version on
+    tail-prefixed rows: one launch of the static body, > 110 dB."""
+    body = fir_kernels.kernel_body(site.num_taps, site.down)
+    assert body == "static"
+    before = fir_decimate.launches, fir_decimate.body_launches[body]
+    yk = fir_decimate(xx, site.taps, site.down)
+    assert (fir_decimate.launches, fir_decimate.body_launches[body]) == tuple(
+        v + 1 for v in before)
+    yp = fir_decimate_plain(xx, site.taps, site.down)
+    assert yk.shape == yp.shape
+    assert _snr(yp, yk) > 110.0
 
 
 def _check_frontend(xx, dual, seed=0):
@@ -212,10 +233,12 @@ def test_fir_bank_kernel_matches_plain(card, site):
     for name in site.split("."):
         bank = getattr(bank, name)
     n = 2 * rx.cfg.if_block if "rrc" not in site else rx.cfg.rds_block
-    body = kernel_body(bank.geometry)
     rng = np.random.default_rng(len(site))
     xx = torch.from_numpy(rng.standard_normal(
         (SITES[site], bank.tail_len + n)).astype(np.float32)).cuda()
+    if isinstance(bank, DecimatingFIR):
+        return _check_decimating_site(bank, xx)
+    body = kernel_body(bank.geometry)
     before = fir_bank.launches, fir_bank.body_launches[body]
     yk = fir_bank(xx, bank.taps, bank.w, bank.geometry)
     assert (fir_bank.launches, fir_bank.body_launches[body]) == tuple(
@@ -322,7 +345,8 @@ def test_chan_epilogue_kernel_byte_equal(card, s_ch, r_n, c, short):
 @pytest.mark.parametrize("down", [2, 5, 10])
 def test_fir_decimate_kernel_matches_plain(card, down):
     rx, _ = card
-    h = rx.audio.resamp_bank.taps[0]
+    h = rx.audio.resamp_bank.taps
+    assert h.shape == (101,)
     rng = np.random.default_rng(down)
     n = 2 * rx.cfg.if_block
     xx = torch.from_numpy(rng.standard_normal(
@@ -333,6 +357,103 @@ def test_fir_decimate_kernel_matches_plain(card, down):
     ref = fir_decimate_plain(xx, h, down)
     assert got.shape == ref.shape == (6, n // down)
     assert _snr(ref, got) > 110.0
+
+
+def _decimate_case(k_taps, rows, n, shift=0, seed=0):
+    """Random taps and tail-prefixed rows on the card; with ``shift`` the
+    rows start that many floats past an aligned address."""
+    rng = np.random.default_rng(seed)
+    h = torch.from_numpy(rng.standard_normal(k_taps).astype(
+        np.float32) / k_taps).cuda()
+    length = k_taps - 1 + n
+    store = torch.from_numpy(rng.standard_normal(
+        rows * length + shift).astype(np.float32)).cuda()
+    return h, store[shift:].view(rows, length)
+
+
+# (K, down, rows, n_out, shift): both static bodies and the general one; K
+# from 2 to 191; n_out at 1, around the static body's block edge and at the
+# main path's 17,640; 1, 32 and 70,000 rows; rows whose starts are not
+# 16-byte aligned (an odd row length, or a shifted start)
+DECIMATE_CASES = [
+    (101, 5, 64, 17_640, 0), (101, 9, 64, 17_640, 0),
+    (101, 5, 1, 17_640, 1), (101, 9, 1, 17_640, 3),
+    (101, 5, 32, 1, 0), (101, 9, 32, 1, 2),
+    (101, 5, 3, STATIC_TILE - 1, 1), (101, 5, 3, STATIC_TILE, 2),
+    (101, 5, 3, STATIC_TILE + 1, 3), (101, 9, 3, STATIC_TILE - 1, 0),
+    (101, 9, 5, STATIC_TILE + 1, 1), (101, 9, 2, 2 * STATIC_TILE + 7, 2),
+    (101, 5, 70_000, 3, 0), (101, 9, 70_000, 2, 1),
+    (101, 4, 32, 17_640, 0), (101, 10, 3, 257, 1), (2, 1, 3, 1, 0),
+    (191, 8, 2, 255, 3), (65, 5, 70_000, 2, 0), (33, 3, 1, 17_640, 1),
+]
+
+
+@pytest.mark.parametrize("k_taps, down, rows, n_out, shift", DECIMATE_CASES)
+def test_fir_decimate_bodies_match_plain(card, k_taps, down, rows, n_out,
+                                         shift):
+    h, xx = _decimate_case(k_taps, rows, n_out * down, shift=shift,
+                           seed=k_taps * 1000 + down + n_out)
+    body = fir_kernels.kernel_body(k_taps, down)
+    assert body == ("static" if k_taps == 101 and down in (5, 9)
+                    else "general")
+    before = fir_decimate.body_launches[body]
+    yk = fir_decimate(xx, h, down)
+    assert fir_decimate.body_launches[body] == before + 1
+    yp = fir_decimate_plain(xx, h, down)
+    torch.cuda.synchronize()
+    assert yk.shape == yp.shape == (rows, n_out)
+    assert torch.isfinite(yk).all()
+    assert _snr(yp, yk) > 110.0, _snr(yp, yk)
+
+
+def test_fir_decimate_refused_request_leaves_no_stale_error(card):
+    """A block that would need more shared memory than the card has: the
+    wrapper refuses it with a ValueError; the C entry, called past the
+    wrapper, returns the error and leaves none behind for the next
+    launch."""
+    h, xx = _decimate_case(191, 2, 4000, seed=5)
+    with pytest.raises(ValueError, match="shared memory"):
+        fir_decimate(xx, h, 400)
+    lib = _build.library()
+    y = torch.empty((2, 10), device="cuda")
+    err = lib.sdr_fir_decimate(xx.data_ptr(), h.data_ptr(), y.data_ptr(), 2,
+                               xx.shape[1], 191, 400, 10,
+                               _build.stream_ptr(xx.device))
+    assert err != 0
+    torch.cuda.synchronize()
+    good = fir_decimate(xx, h, 8)
+    torch.cuda.synchronize()
+    assert _snr(fir_decimate_plain(xx, h, 8), good) > 110.0
+    with pytest.raises(ValueError):
+        fir_decimate(xx[:, :-1].contiguous(), h, 8)     # down | N
+    with pytest.raises(ValueError):
+        fir_decimate(xx[:, ::2], h, 1)                  # not contiguous
+    with pytest.raises(TypeError):
+        fir_decimate(xx.double(), h, 8)
+
+
+@pytest.mark.parametrize("mode", [0, 1])
+def test_audio_site_on_card_matches_cpu(card, mode):
+    """Modes 0 and 1 resample their audio through the decimating FIR (one
+    static-body launch per segment, the FIR bank one fewer): audio against
+    the CPU run > 60 dB over two chained 3-block segments."""
+    rx = Receiver(mode, stereo=True, rds=True, pll_tier=3, device="cuda")
+    ref = Receiver(mode, stereo=True, rds=True, pll_tier=3)
+    assert isinstance(rx.audio.resamp_bank, DecimatingFIR)
+    iq, _ = synth.station_iq(rx.cfg, 6, ps_name="AUDIOFIR")
+    x = torch.from_numpy(iq)
+    batch = torch.stack([x, x.roll(2 * 4099)])
+    half = batch.shape[1] // 2
+    st, rst = rx.init_state(2), ref.init_state(2)
+    for seg in (batch[:, :half], batch[:, half:]):
+        before = (fir_decimate.body_launches["static"], fir_bank.launches)
+        st, out = rx.run_segment(st, seg.cuda())
+        assert fir_decimate.body_launches["static"] == before[0] + 1
+        assert fir_bank.launches == before[1] + 6
+        rst, rout = ref.run_segment(rst, seg)
+        for c in range(2):
+            assert _snr(rout.left[c], out.left[c]) > 60.0
+            assert _snr(rout.right[c], out.right[c]) > 60.0
 
 
 def test_two_stage_wideband_on_card_matches_cpu(card):
@@ -508,13 +629,15 @@ def test_fir_bank_mode_sites_match_plain(card, mode, site):
     bank = rx
     for name in site.split("."):
         bank = getattr(bank, name)
-    g = bank.geometry
-    assert kernel_body(g) == "general"
     rng = np.random.default_rng(mode)
     rows = 4 if "audio" in site else 6
     xx = torch.from_numpy(rng.standard_normal(
         (rows, bank.tail_len + 2 * rx.cfg.if_block)).astype(
             np.float32)).cuda()
+    if isinstance(bank, DecimatingFIR):         # mode 1's audio, down 9
+        return _check_decimating_site(bank, xx)
+    g = bank.geometry
+    assert kernel_body(g) == "general"
     yk = fir_bank(xx, bank.taps, bank.w, g)
     yp = fir_bank_plain(xx, bank.w, g)
     assert yk.shape == yp.shape

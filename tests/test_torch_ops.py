@@ -9,9 +9,14 @@ interchange bound: its CPU frontend uses bf16 hi+lo split taps), the
 channelizer epilogue byte-exact against the NumPy reference and within
 1 LSB on < 1 % of bytes against the Pallas kernel (the JAX package's bound:
 its kernel's rotation may contract to FMA), the direct-form decimating
-FIR > 110 dB.
+FIR > 110 dB against the Pallas kernel and > 120 dB against the float64
+direct form (f32 rounding of a K-term sum). The audio paths at modes 0 and
+1, whose resampler is that FIR: the resampler op and ``MonoPath`` > 110 dB
+against the JAX package's, ``StereoPath`` > 60 dB (the chain gate: it holds
+the tier-3 carrier sync), carried tails equal within f32 rounding.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +24,7 @@ import torch
 
 from real_time_sdr_tpu import config as C
 from real_time_sdr_tpu.config import mode_config as jmode_config
+from real_time_sdr_tpu.models import audio as jaudio_paths
 from real_time_sdr_tpu.models.frontend import Frontend as JFrontend
 from real_time_sdr_tpu.ops import filters
 from real_time_sdr_tpu.ops import fir as jfir
@@ -33,6 +39,7 @@ from real_time_sdr_tpu.ops.sync import FeedforwardSync as JSync
 from real_time_sdr_tpu.utils import audio as jaudio
 from real_time_sdr_tpu.utils import synth as jsynth
 from real_time_sdr_tpu_torch.config import mode_config
+from real_time_sdr_tpu_torch.models import audio as taudio_paths
 from real_time_sdr_tpu_torch.models.channelizer import Channelizer
 from real_time_sdr_tpu_torch.models.frontend import Frontend
 from real_time_sdr_tpu_torch.models.receiver import Receiver
@@ -43,6 +50,7 @@ from real_time_sdr_tpu_torch.ops.cuda.chan_epilogue import chan_epilogue_plain
 from real_time_sdr_tpu_torch.ops.cuda.fir_bank import (TILED_TILE,
                                                        fir_bank_plain,
                                                        kernel_body)
+from real_time_sdr_tpu_torch.ops.cuda import fir_kernels
 from real_time_sdr_tpu_torch.ops.cuda.fir_kernels import (fir_decimate_planes,
                                                           fir_decimate_plain)
 from real_time_sdr_tpu_torch.ops.cuda.frontend_fused import (SPAN, TILE,
@@ -50,6 +58,7 @@ from real_time_sdr_tpu_torch.ops.cuda.frontend_fused import (SPAN, TILE,
                                                             frontend_planes)
 from real_time_sdr_tpu_torch.ops.demod import fm_demod
 from real_time_sdr_tpu_torch.utils import audio as taudio
+from real_time_sdr_tpu_torch.utils.state import state_from_numpy
 
 FS_IF = 240_000
 
@@ -147,11 +156,12 @@ def test_fir_bank_plain_matches_direct_form(nf, k_taps, n):
     assert _snr(ref, got) > 120.0, _snr(ref, got)
 
 
-# every FIR bank of the stereo + RDS receiver and the 64-station
-# channelizer -> the kernel body its geometry takes
+# every FIR site of the stereo + RDS receiver and the 64-station
+# channelizer -> the kernel body its geometry takes (the mode-0 audio
+# resampler is the direct-form decimating kernel, static body)
 BODIES = {
     "if_bank": "tiled", "audio.pb_bank": "tiled",
-    "audio.resamp_bank": "general", "audio.sync.bank": "tiled",
+    "audio.resamp_bank": "static", "audio.sync.bank": "tiled",
     "rds_path.band_bank": "tiled", "rds_path.pilot_bank": "tiled",
     "rds_path.baseband_bank": "general", "rds_path.rrc_bank": "tiled",
     "rds_path.sync.bank": "tiled", "channelizer.bank": "general",
@@ -160,12 +170,13 @@ BODIES = {
 
 @pytest.fixture(scope="module")
 def fir_sites():
-    """name -> FIRBank over the receiver and the 64-station channelizer."""
+    """name -> FIRBank or DecimatingFIR over the receiver and the
+    64-station channelizer."""
     rx = Receiver(0, stereo=True, rds=True, pll_tier=3)
     offs = [int((k - 31.5) * 300_000) for k in range(64)]
     ch = Channelizer(rx.cfg, 8 * rx.cfg.rf_fs, offs)
     return {**{n: m for n, m in rx.named_modules()
-               if isinstance(m, tfir.FIRBank)},
+               if isinstance(m, (tfir.FIRBank, tfir.DecimatingFIR))},
             "channelizer.bank": ch.bank}
 
 
@@ -175,8 +186,12 @@ def test_fir_bank_sites_are_all_listed(fir_sites):
 
 @pytest.mark.parametrize("site", sorted(BODIES))
 def test_fir_bank_body_choice(fir_sites, site):
-    """The geometry alone names the body: tiled at up == down == 1."""
-    assert kernel_body(fir_sites[site].geometry) == BODIES[site]
+    """The geometry alone names the body: the FIR bank's tiled one at
+    up == down == 1, the decimating FIR's static one at the audio sites."""
+    m = fir_sites[site]
+    body = (fir_kernels.kernel_body(m.num_taps, m.down)
+            if isinstance(m, tfir.DecimatingFIR) else kernel_body(m.geometry))
+    assert body == BODIES[site]
 
 
 def test_apf_delay_slice_exact():
@@ -374,6 +389,147 @@ def test_fir_decimate_rejects_non_dividing_geometry():
         fir_decimate_planes(torch.zeros(2, 100 + 1000), h, 3)
     with pytest.raises(TypeError):
         fir_decimate_planes(torch.zeros(2, 1100, dtype=torch.float64), h, 5)
+
+
+# (K, down, n_out): the receiver's two audio geometries (static body), a
+# fallback geometry, n_out 1 and around the static body's tile edge
+DECIMATE_CASES = [(101, 5, 1470), (101, 9, 1470), (33, 4, 500), (101, 5, 1),
+                  (101, 9, 1), (101, 5, fir_kernels.STATIC_TILE - 1),
+                  (101, 5, fir_kernels.STATIC_TILE),
+                  (101, 9, fir_kernels.STATIC_TILE + 1), (2, 1, 7)]
+
+
+@pytest.mark.parametrize("k_taps, down, n_out", DECIMATE_CASES)
+def test_fir_decimate_plain_matches_direct_form(k_taps, down, n_out):
+    """The oracle of the card tests: ``fir_decimate_plain`` against
+    y[n] = sum_k h[k] xx[n*down + K-1-k] in float64 on the same f32 taps and
+    input, > 120 dB (f32 rounding of a K-term sum). ``down`` need not divide
+    K-1 (K 101, down 9)."""
+    rng = np.random.default_rng(k_taps * 100 + down + n_out)
+    h = rng.standard_normal(k_taps).astype(np.float32)
+    xx = rng.standard_normal((3, k_taps - 1 + n_out * down)).astype(np.float32)
+    got = fir_decimate(torch.from_numpy(xx), torch.from_numpy(h), down)
+    win = np.lib.stride_tricks.sliding_window_view(
+        xx.astype(np.float64), k_taps, axis=-1)[:, ::down]
+    ref = win @ h[::-1].astype(np.float64)
+    assert got.shape == ref.shape == (3, n_out)
+    assert _snr(ref, got) > 120.0, _snr(ref, got)
+
+
+def test_fir_decimate_down_need_not_divide_taps():
+    """The CUDA kernel reads its window from the row, so ``fir_decimate``
+    takes any down | N; ``fir_decimate_planes`` keeps the TPU kernel's plane
+    contract (down | K-1 as well) and its ValueError."""
+    h = tuple(filters.design_lpf(FS_IF, 16_000, 101))
+    xx = torch.zeros(2, 100 + 900)
+    assert fir_decimate(xx, h, 9).shape == (2, 100)       # 100 % 9 == 1
+    with pytest.raises(ValueError, match="K-1"):
+        fir_decimate_planes(xx, h, 9)
+    with pytest.raises(ValueError):                       # down | N still
+        fir_decimate(torch.zeros(2, 100 + 901), h, 9)
+
+
+@pytest.mark.parametrize("k_taps, down, body", [
+    (101, 5, "static"), (101, 9, "static"), (101, 4, "general"),
+    (101, 10, "general"), (65, 5, "general"), (2, 1, "general")])
+def test_fir_decimate_body_choice(k_taps, down, body):
+    """(K, down) alone names the body: static at the two audio geometries
+    of the receiver (modes 0 and 1)."""
+    assert fir_kernels.kernel_body(k_taps, down) == body
+    assert set(fir_decimate.body_launches) == {"static", "general"}
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_audio_modules_pick_resampler(mode):
+    """The configuration alone picks the audio resampler, once: the
+    decimating FIR where the mode does not upsample (modes 0-1), the
+    polyphase FIR bank otherwise (modes 2-3); same carry either way."""
+    cfg = mode_config(mode)
+    want = tfir.DecimatingFIR if cfg.audio_up == 1 else tfir.FIRBank
+    assert (cfg.audio_up == 1) == (mode in (0, 1))
+    for site in (taudio_paths.MonoPath(cfg).audio_bank,
+                 taudio_paths.StereoPath(cfg, 3).resamp_bank):
+        assert type(site) is want
+        assert site.tail_len == tfir.state_len(cfg.rf_taps * cfg.audio_up,
+                                               cfg.audio_up) == 100
+    if cfg.audio_up == 1:
+        assert fir_kernels.kernel_body(site.num_taps, site.down) == "static"
+        assert site.down == cfg.audio_down
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _multiplex(cfg, n, seed):
+    """(2, n) FM multiplex-like rows at the IF rate: mono tone, 19 kHz
+    pilot, a DSB-SC subcarrier on 38 kHz, a little noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / cfg.if_fs
+    rows = []
+    for f_m, f_s, ph in ((1000.0, 700.0, 0.3), (440.0, 1500.0, 1.1)):
+        rows.append(0.4 * np.sin(2 * np.pi * f_m * t)
+                    + 0.1 * np.cos(2 * np.pi * 19_000 * t + ph)
+                    + 0.3 * np.sin(2 * np.pi * f_s * t)
+                    * np.cos(2 * (2 * np.pi * 19_000 * t + ph))
+                    + 0.01 * rng.standard_normal(n))
+    return np.stack(rows).astype(np.float32)
+
+
+@pytest.mark.parametrize("mode", [0, 1])
+def test_audio_paths_match_jax(mode):
+    """MonoPath and StereoPath (tier 3) at the modes whose resampler is the
+    decimating FIR, 2 channels x 2 calls of 2 blocks: the resampler op and
+    MonoPath > 110 dB, StereoPath > 60 dB; the JAX state after call 1
+    converts and carries the port through call 2; new tails equal within f32
+    rounding."""
+    cfg, jcfg = mode_config(mode), jmode_config(mode)
+    n = 2 * cfg.if_block
+    x = _multiplex(cfg, 2 * n, mode)
+    jmono, tmono = jaudio_paths.MonoPath(jcfg), taudio_paths.MonoPath(cfg)
+    jst = [jmono.init_state() for _ in range(2)]
+    tst = tmono.init_state(2)
+    for k in range(2):
+        seg = x[:, k * n:(k + 1) * n]
+        ja = [jmono(jnp.asarray(seg[c]), jst[c]) for c in range(2)]
+        jst = [a[1] for a in ja]
+        audio, tst = tmono(torch.from_numpy(seg), tst)
+        assert audio.shape == (2, n * cfg.audio_up // cfg.audio_down)
+        for c in range(2):
+            assert _snr(ja[c][0], audio[c]) > 110.0, _snr(ja[c][0], audio[c])
+            np.testing.assert_allclose(tst.audio_tail[c].numpy(),
+                                       np.asarray(jst[c].audio_tail),
+                                       rtol=1e-6, atol=1e-7)
+    jster = jaudio_paths.StereoPath(jcfg, pll_tier=3)
+    tster = taudio_paths.StereoPath(cfg, pll_tier=3)
+    # the resampler op alone, both rails stacked as the path stacks them
+    rails = x[:, :n].reshape(1, 2, n)
+    tails = np.zeros((1, 2, 100), np.float32)
+    (ty,), ttail = tster.resamp_bank(torch.from_numpy(rails),
+                                     torch.from_numpy(tails))
+    for r in range(2):
+        jy, jtail = jster.mono_fir(jnp.asarray(rails[0, r]),
+                                   jnp.asarray(tails[0, r]))
+        assert _snr(jy, ty[0, r]) > 110.0, _snr(jy, ty[0, r])
+        np.testing.assert_array_equal(ttail[0, r].numpy(), np.asarray(jtail))
+    run = jax.jit(jster.__call__)
+    jst = [jster.init_state() for _ in range(2)]
+    mid = []
+    for c in range(2):
+        _, st = run(jnp.asarray(x[c, :n]), jst[c])
+        mid.append(_np_tree(st))
+    state = state_from_numpy(jax.tree_util.tree_map(
+        lambda *a: np.stack(a), *mid))
+    (left, right), new = tster(torch.from_numpy(x[:, n:]), state)
+    for c in range(2):
+        (jl, jr), jnew = run(jnp.asarray(x[c, n:]),
+                             jax.tree_util.tree_map(jnp.asarray, mid[c]))
+        assert _snr(jl, left[c]) > 60.0, _snr(jl, left[c])
+        assert _snr(jr, right[c]) > 60.0, _snr(jr, right[c])
+        for leaf in ("mono_tail", "stereo_tail", "delay_tail", "pilot_tail"):
+            np.testing.assert_allclose(
+                getattr(new, leaf)[c].numpy(),
+                np.asarray(getattr(jnew, leaf)), rtol=1e-4, atol=1e-4)
 
 
 def test_new_wrappers_route_by_device():

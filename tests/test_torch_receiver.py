@@ -170,6 +170,62 @@ def test_state_carried_over_from_jax():
         np.clip(16384 * out.left.numpy(), -32768, 32767).astype(np.int16))
 
 
+def test_receiver_flags_match_jax():
+    """``stereo`` and ``rds`` are plain bools on the receiver, as on the JAX
+    one (its CLI reads ``rx.rds``); ``rds_path`` stays the module."""
+    for kw in (dict(), dict(stereo=True), dict(stereo=True, rds=True)):
+        jrx, rx = JReceiver(0, **kw), Receiver(0, **kw)
+        assert isinstance(rx.rds, bool) and rx.rds == jrx.rds
+        assert rx.stereo == jrx.stereo
+        assert (rx.rds_path is not None) == rx.rds
+
+
+# channel -> circular shift (I/Q pairs) of the 36-block capture, as the card
+# check tiles one station into 32 channels; 13 and 17 are the two channels
+# on which PS does not decode there
+SHIFTS = {0: 0, 3: 1352467, 13: 1332597, 17: 1672988}
+
+
+def test_shifted_channels_ps_matches_jax():
+    """PS decodes on 30 of the card check's 32 shifted channels. The two
+    that miss it are no fault of the port: the JAX receiver misses PS on
+    the same two shifts and decodes it on the others, with the same partial
+    name. A 36-block capture (1.1 s, 9-10 RDS groups) holds each PS segment
+    two or three times; rolled by these shifts, the wrap point and the
+    warm-up together cost every copy of segment 0. The capture's length is
+    what shows it, so the test runs all 36 blocks (three 12-block
+    segments)."""
+    jrx = JReceiver(0, stereo=True, rds=True, pll_tier=3)
+    rx = Receiver(0, stereo=True, rds=True, pll_tier=3)
+    iq, _ = jsynth.station_iq(jrx.cfg, 36, ps_name="H100 FM ", pi=0x3A5C,
+                              pty=5)
+    pairs = iq.reshape(-1, 2)
+    tiled = np.stack([np.roll(pairs, -s, axis=0).reshape(-1)
+                      for s in SHIFTS.values()])
+    seg = 12 * 2 * rx.cfg.block_size_iq
+    run = jax.jit(jrx.run_segment)
+    st = rx.init_state(len(SHIFTS))
+    jst = [jrx.init_state() for _ in SHIFTS]
+    fr = [RdsFramer() for _ in SHIFTS]
+    jfr = [JRdsFramer() for _ in SHIFTS]
+    for k in range(3):
+        x = np.ascontiguousarray(tiled[:, k * seg:(k + 1) * seg])
+        st, out = rx.run_segment(st, torch.from_numpy(x))
+        for c in range(len(SHIFTS)):
+            jst[c], jo = run(jst[c], jnp.asarray(x[c]))
+            jb, jn = np.asarray(jo.rds_bits), np.asarray(jo.rds_nbits)
+            tb, tn = out.rds_bits[c].numpy(), out.rds_nbits[c].numpy()
+            for b in range(12):
+                fr[c].feed(tb[b][:tn[b]])
+                jfr[c].feed(jb[b][:jn[b]])
+    names = [f.events.ps_name for f in fr]
+    assert names == [f.events.ps_name for f in jfr]
+    assert [f.events.groups_decoded for f in fr] == [
+        f.events.groups_decoded for f in jfr]
+    assert names[:2] == ["H100 FM "] * 2
+    assert names[2:] == ["\x00\x0000 FM "] * 2
+
+
 def test_rds_code_constants_equal():
     assert rds_codes.OFFSET_WORDS == jbits.OFFSET_WORDS
     assert rds_codes.OFFSET_SYNDROMES == jbits.OFFSET_SYNDROMES
@@ -210,7 +266,8 @@ def test_framer_copy_events_identical(slice_run):
 def test_port_runs_without_jax():
     """Importing the port and running a CPU run_segment, one tier-1 block,
     one wideband segment through both wideband frontends and the channel
-    bank, and the CLI on one block, loads no jax, no module of the JAX
+    bank, the CLI on one block and the wideband CLI on one block of two
+    stations with a checkpoint, loads no jax, no module of the JAX
     package ``real_time_sdr_tpu`` and no ``golden`` (a subprocess: this
     test process already imported all three)."""
     code = textwrap.dedent("""
@@ -261,6 +318,18 @@ def test_port_runs_without_jax():
                                              fst)
             assert out.left.shape == (2, rx.cfg.audio_block)
             state.state_from_numpy(state.state_to_numpy(fst))
+        with tempfile.TemporaryDirectory() as d:
+            wide = os.path.join(d, "wide.raw")
+            raw.numpy().tofile(wide)
+            assert cli.main(["0", "r", "--cpu", "--pll-tier", "3",
+                             "--stations=-300000,600000", "--wide-fs",
+                             str(wide_fs), "--output-dir", d, "--input",
+                             wide, "--checkpoint",
+                             os.path.join(d, "ck")]) == 0
+            for k in range(2):
+                assert os.path.getsize(os.path.join(
+                    d, f"station_{k}.pcm")) == 4 * rx.cfg.audio_block
+            assert os.path.exists(os.path.join(d, "ck.npz"))
         foreign = sorted(
             m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "real_time_sdr_tpu",

@@ -21,6 +21,9 @@ Bounds:
   rounding inside each run; retune exact;
 - the bank on the JAX channelizer's u8: audio > 60 dB (the chain gate),
   RDS bits equal from a carried state;
+- ``ChannelBank.step`` / ``run`` (block entries) against JAX's on 2
+  channels x 2 blocks from a carried state: audio > 60 dB, RDS bits equal,
+  outputs stacked on a leading block axis;
 - the whole slice, port only: PS/PI exact and tones within 10 Hz on both
   wideband paths.
 """
@@ -411,6 +414,55 @@ def test_bank_on_jax_channelizer_u8_matches_jax_bank(rx):
                                   np.asarray(jout.rds_nbits))
     np.testing.assert_array_equal(out.rds_bits.numpy(),
                                   np.asarray(jout.rds_bits))
+
+
+def test_bank_step_and_run_match_jax_bank(rx):
+    """ChannelBank.step (one block per channel) and run ((B, C, n) blocks)
+    against the JAX bank's, 2 channels: both carry on from the JAX bank's
+    state after 6 blocks; 2 more blocks agree to > 60 dB (the chain gate)
+    with the RDS bits equal, outputs on a leading B axis as JAX's scan
+    gives them, and run == two steps bit for bit."""
+    iq = np.stack([jsynth.station_iq(JCFG, 8, ps_name=f"STEP-{k}  ",
+                                     pi=0x5100 + k,
+                                     tone_left=500.0 + 300 * k)[0]
+                   for k in range(2)])
+    blk = 2 * CFG.block_size_iq
+    jrx = JReceiver(0, stereo=True, rds=True, pll_tier=3,
+                    frontend_impl="pallas_interpret")
+    jbank = JBank(jrx, 2)
+    jst, _ = jbank.run_segment(jbank.init_state(),
+                               jnp.asarray(iq[:, :6 * blk]))
+    blocks = np.ascontiguousarray(
+        iq[:, 6 * blk:].reshape(2, 2, blk).transpose(1, 0, 2))   # (B, C, n)
+    _, jout = jbank.run(jst, jnp.asarray(blocks))
+    bank = ChannelBank(rx, 2)
+    state0 = state_from_numpy(jax.tree_util.tree_map(np.asarray, jst))
+    placed = bank.place(blocks)
+    assert placed.device == rx.device and placed.dtype == torch.uint8
+    st_run, out = bank.run(state0, placed)
+    assert out.left.shape == (2, 2, CFG.audio_block)
+    assert out.rds_bits.shape == (2, 2, CFG.max_bits)
+    assert out.rds_nbits.shape == (2, 2)
+    for rail in ("left", "right"):
+        assert _snr(getattr(jout, rail), getattr(out, rail)) > 60.0
+    assert int(np.asarray(jout.rds_nbits).sum()) > 0
+    np.testing.assert_array_equal(out.rds_nbits.numpy(),
+                                  np.asarray(jout.rds_nbits))
+    np.testing.assert_array_equal(out.rds_bits.numpy(),
+                                  np.asarray(jout.rds_bits))
+    st = state0
+    for b in range(2):
+        st, o = bank.step(st, placed[b])
+        torch.testing.assert_close(o.left, out.left[b], rtol=0, atol=0)
+        torch.testing.assert_close(o.rds_bits, out.rds_bits[b], rtol=0,
+                                   atol=0)
+    for a, c in zip(jax.tree_util.tree_leaves(st),
+                    jax.tree_util.tree_leaves(st_run)):
+        torch.testing.assert_close(a, c, rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        bank.step(state0, placed[0][:1])
+    with pytest.raises(ValueError):
+        bank.run(state0, placed[0])
 
 
 # -- the slice as a whole -----------------------------------------------------
