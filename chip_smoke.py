@@ -96,7 +96,30 @@ non-zero on failure:
    (station 0 prints slot 32's PS after segment 1, the other 63 PCM files
    byte-identical); and as two runs with ``--checkpoint`` (18 blocks, then
    the rest: the joined PCM within 1 LSB of the first run's, the three
-   stations' PS printed by the end).
+   stations' PS printed by the end);
+8. parallel paths at full width (mode 0, type r): one 384-block capture
+   (56.4 MB u8, 11.76 s of radio, synthesized whole: no two shards hold
+   the same bytes) on the card, through ``time_sharded_run(rx, blocks, shards=32)`` at tier 3
+   (the shards are the 32 rows of one batch) against ``rx.run_blocks`` on
+   one row over all 384 blocks: audio > 100 dB on every block,
+   ``rds_bits`` / ``rds_nbits`` equal, PS/PI from the sharded bits; the
+   frontend, both FIR-bank bodies and ``fir_decimate`` must launch; the
+   wall time and real-time multiple of both runs are printed. The same
+   capture at the default tier 1 (approximate mode, ``pll_scan`` twice per
+   step at 32 rows): every block after a shard's first > 25 dB against the
+   sequential tier-1 run of the first 4 shards' blocks, shard 0's first
+   block identical, PI decoded (PS from the 4-shard run: a 12-block shard
+   re-aligns its slicer every 0.37 s). Joint: 4 shifted channels x 96
+   blocks as 8 shards (32 rows) against ``run_blocks`` on the 4 rows, as
+   the exact case per channel. Sharded wideband: phase 5's 64-station
+   capture through ``ShardedWideband`` and ``ShardedFusedWideband`` on
+   ``[cuda:0, cuda:0]`` (two replicas, 32 stations each): the 3 real
+   stations > 70 dB with RDS bits equal against phase 5's unsharded
+   outputs, their PS decoded, ``chan_epilogue`` launched twice per
+   two-stage segment, and one ``retune`` of the last station (second
+   shard) onto slot 32's transmitter that rewrites only the second
+   shard's weights, decodes slot 32's PS there and leaves the first
+   shard's outputs byte-identical.
 
 Each path's kernel counts are set to 0 just before it and read just after
 (a CLI run is a process of its own: its counts start at 0 and are read from
@@ -279,7 +302,12 @@ def main() -> None:
         from real_time_sdr_tpu_torch.ops.pll import (PllCarry, pll_init,
                                                      pll_newton,
                                                      pll_scan_plain)
-        from real_time_sdr_tpu_torch.parallel.channel import ChannelBank
+        from real_time_sdr_tpu_torch.parallel.channel import (ChannelBank,
+                                                              gather)
+        from real_time_sdr_tpu_torch.parallel.time_shard import (
+            time_sharded_run, time_sharded_run_bank)
+        from real_time_sdr_tpu_torch.parallel.wideband import (
+            ShardedFusedWideband, ShardedWideband)
         from real_time_sdr_tpu_torch.utils import synth
         from real_time_sdr_tpu_torch.utils.state import map_state
     except ImportError as e:
@@ -346,41 +374,49 @@ def main() -> None:
     # -- 3. kernels vs plain ------------------------------------------------
     rng = np.random.default_rng(1)
     kernels = {}
-    fe = rx.frontend
-    xx = torch.cat([fe.init_state(CH).iq_tail,
-                    torch.from_numpy(segs[0]).to(dev)], dim=-1)
     pi0, pq0 = (torch.from_numpy(rng.uniform(-0.5, 0.5, CH).astype(
         np.float32)).to(dev) for _ in range(2))
-    dk, ik, qk = frontend_fused.launch(xx, fe.rf_fir.taps, fe.rf_fir.down,
-                                       pi0, pq0)
-    dp, ip, qp = frontend_plain(xx, fe.rf_fir, pi0, pq0)
-    torch.cuda.synchronize()
-    fe_snr = snr_db(dp, dk)
-    fe_err = (dk - dp).abs().max().item()
-    prev_err = max((ik - ip).abs().max().item(), (qk - qp).abs().max().item())
-    fe_ms = device_ms(torch, lambda: frontend_fused.launch(
-        xx, fe.rf_fir.taps, fe.rf_fir.down, pi0, pq0))
-    fe_plain_ms = device_ms(torch, lambda: frontend_plain(
-        xx, fe.rf_fir, pi0, pq0))
+
     def frontend_bound(xx_, dk_, k_taps_):
         """Bytes: the u8 rows in, the f32 demod out; operations: K FMAs
         for I and for Q per output."""
         return bound(xx_.numel() + 4 * dk_.numel(),
                      2 * 2 * k_taps_ * dk_.numel())
 
-    fe_bound = frontend_bound(xx, dk, fe.rf_fir.taps.shape[0])
-    print(f"kernel frontend_fused: ({CH}, {xx.shape[1]}) u8 -> "
-          f"{tuple(dk.shape)}: SNR {fe_snr:.1f} dB vs plain, max abs err "
-          f"{fe_err:.3g}, prev err {prev_err:.3g}; kernel {fe_ms:.4f} ms, "
-          f"plain {fe_plain_ms:.4f} ms, bound {fe_bound['bound_ms']:.4f} ms "
-          f"({fe_bound['bound_by']}), no library call")
-    if not (fe_snr > 90.0 and prev_err < 1e-4):
-        fail(f"frontend kernel disagrees with its plain version "
-             f"({fe_snr:.1f} dB, prev err {prev_err:.3g})")
-    kernels[frontend_fused.name] = dict(max_abs_err=fe_err, ms=fe_ms,
-                                        plain_ms=fe_plain_ms, **fe_bound,
-                                        library_ms=None)
-    del xx, dk, dp
+    def check_frontend(label, seg_u8):
+        """The mode-0 frontend kernel on (CH, n) u8 rows behind a zero
+        tail against its plain version: demod > 90 dB, carried samples
+        within 1e-4."""
+        fe = rx.frontend
+        xx = torch.cat([fe.init_state(CH).iq_tail,
+                        torch.from_numpy(seg_u8).to(dev)], dim=-1)
+        dk, ik, qk = frontend_fused.launch(xx, fe.rf_fir.taps,
+                                           fe.rf_fir.down, pi0, pq0)
+        dp, ip, qp = frontend_plain(xx, fe.rf_fir, pi0, pq0)
+        torch.cuda.synchronize()
+        fe_snr = snr_db(dp, dk)
+        fe_err = (dk - dp).abs().max().item()
+        prev_err = max((ik - ip).abs().max().item(),
+                       (qk - qp).abs().max().item())
+        fe_ms = device_ms(torch, lambda: frontend_fused.launch(
+            xx, fe.rf_fir.taps, fe.rf_fir.down, pi0, pq0))
+        fe_plain_ms = device_ms(torch, lambda: frontend_plain(
+            xx, fe.rf_fir, pi0, pq0))
+        fe_bound = frontend_bound(xx, dk, fe.rf_fir.taps.shape[0])
+        print(f"kernel frontend_fused[{label}]: ({CH}, {xx.shape[1]}) u8 "
+              f"-> {tuple(dk.shape)}: SNR {fe_snr:.1f} dB vs plain, max abs "
+              f"err {fe_err:.3g}, prev err {prev_err:.3g}; kernel "
+              f"{fe_ms:.4f} ms, plain {fe_plain_ms:.4f} ms, bound "
+              f"{fe_bound['bound_ms']:.4f} ms ({fe_bound['bound_by']}), no "
+              "library call")
+        if not (fe_snr > 90.0 and prev_err < 1e-4):
+            fail(f"frontend kernel [{label}] disagrees with its plain "
+                 f"version ({fe_snr:.1f} dB, prev err {prev_err:.3g})")
+        return dict(max_abs_err=fe_err, ms=fe_ms, plain_ms=fe_plain_ms,
+                    **fe_bound, library_ms=None)
+
+    kernels[frontend_fused.name] = check_frontend(
+        f"{CH} ch x {BLOCKS} blk", segs[0])
 
     n_if = cfg.if_block * BLOCKS
     sites = [  # (name, bank, rows, n) at the main path's shapes
@@ -466,38 +502,52 @@ def main() -> None:
           f"{kernels['fir_bank']['ms_up1_sites']:.4f} ms, conv1d "
           f"{kernels['fir_bank']['library_ms_up1_sites']:.4f} ms")
 
-    # channelizer epilogue at the 64-station, 12-block, 19.2 MS/s shape:
-    # S = 64, R = 16, c = n_out / R frames
-    s_ch, r_n = WB_STATIONS, 16
+    # channelizer epilogue at the 12-block, 19.2 MS/s shape (R = 16, c =
+    # n_out / R frames): all 64 stations, as the unsharded two-stage path
+    # gives them, and the 32 of one shard of the station-sharded path
+    r_n = 16
     n_out_wb = BLOCKS * cfg.block_size_iq                 # station rate
     gen = torch.Generator(device=dev).manual_seed(3)
-    y = 0.5 * torch.randn((n_out_wb // r_n, r_n * 2 * s_ch), device=dev,
-                          generator=gen)
-    ang = 7.0 * torch.rand(s_ch, device=dev, generator=gen)
-    pc, ps = torch.cos(ang), torch.sin(ang)
-    uk = chan_epilogue.launch(y, pc, ps, r_n, s_ch, n_out_wb)
-    up = chan_epilogue_plain(y, pc, ps, r_n, s_ch, n_out_wb)
-    torch.cuda.synchronize()
-    epi_err = (uk.int() - up.int()).abs().max().item()
-    epi_ms = device_ms(torch, lambda: chan_epilogue.launch(
-        y, pc, ps, r_n, s_ch, n_out_wb))
-    epi_plain_ms = device_ms(torch, lambda: chan_epilogue_plain(
-        y, pc, ps, r_n, s_ch, n_out_wb))
-    moved = y.numel() * 4 + uk.numel()
-    # 6 f32 operations per complex sample (the rotation), 2 more to quantise
-    epi_bound = bound(moved, 8 * s_ch * n_out_wb)
-    print(f"kernel chan_epilogue: y {tuple(y.shape)} f32, R {r_n}, S {s_ch} "
-          f"-> {tuple(uk.shape)} u8: byte-equal {torch.equal(uk, up)}, max "
-          f"abs err {epi_err} LSB; kernel {epi_ms:.4f} ms "
-          f"({moved / epi_ms / 1e9:.2f} TB/s of {moved / 1e6:.1f} MB), "
-          f"plain {epi_plain_ms:.4f} ms, bound {epi_bound['bound_ms']:.4f} "
-          f"ms ({epi_bound['bound_by']}), no library call")
-    if not torch.equal(uk, up):
-        fail("chan_epilogue kernel is not byte-equal to its plain version")
-    kernels[chan_epilogue.name] = dict(max_abs_err=float(epi_err), ms=epi_ms,
-                                       plain_ms=epi_plain_ms, **epi_bound,
-                                       library_ms=None)
-    del y, uk, up
+
+    def check_epilogue(label, s_ch):
+        y = 0.5 * torch.randn((n_out_wb // r_n, r_n * 2 * s_ch), device=dev,
+                              generator=gen)
+        ang = 7.0 * torch.rand(s_ch, device=dev, generator=gen)
+        pc, ps = torch.cos(ang), torch.sin(ang)
+        uk = chan_epilogue.launch(y, pc, ps, r_n, s_ch, n_out_wb)
+        up = chan_epilogue_plain(y, pc, ps, r_n, s_ch, n_out_wb)
+        torch.cuda.synchronize()
+        err = (uk.int() - up.int()).abs().max().item()
+        t_k = device_ms(torch, lambda: chan_epilogue.launch(
+            y, pc, ps, r_n, s_ch, n_out_wb))
+        t_p = device_ms(torch, lambda: chan_epilogue_plain(
+            y, pc, ps, r_n, s_ch, n_out_wb))
+        moved = y.numel() * 4 + uk.numel()
+        # 6 f32 operations per complex sample (the rotation), 2 more to
+        # quantise
+        bnd = bound(moved, 8 * s_ch * n_out_wb)
+        print(f"kernel chan_epilogue[{label}]: y {tuple(y.shape)} f32, R "
+              f"{r_n}, S {s_ch} -> {tuple(uk.shape)} u8: byte-equal "
+              f"{torch.equal(uk, up)}, max abs err {err} LSB; kernel "
+              f"{t_k:.4f} ms ({moved / t_k / 1e9:.2f} TB/s of "
+              f"{moved / 1e6:.1f} MB), plain {t_p:.4f} ms, bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), no library "
+              f"call")
+        if not torch.equal(uk, up):
+            fail(f"chan_epilogue[{label}] kernel is not byte-equal to its "
+                 f"plain version")
+        return dict(shape=list(y.shape), stations=s_ch,
+                    max_abs_err=float(err), ms=t_k, plain_ms=t_p, **bnd,
+                    library_ms=None)
+
+    epi = check_epilogue(f"{WB_STATIONS} stations", WB_STATIONS)
+    epi_shard = check_epilogue(
+        f"{WB_STATIONS // 2} stations, one shard of two", WB_STATIONS // 2)
+    kernels[chan_epilogue.name] = dict(
+        max_abs_err=max(epi["max_abs_err"], epi_shard["max_abs_err"]),
+        **{k: epi[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")},
+        sharded_step=epi_shard)
 
     # direct-form decimating FIR (the audio resampler of modes 0-1): mode
     # 0's rails (64 rails x 12 blocks of IF, K 101, down 5), mode 1's (down
@@ -688,6 +738,37 @@ def main() -> None:
             fail(f"tier 2 [{loop}] disagrees with tier 1 "
                  f"({min(snrs2):.1f} dB)")
     del pilots
+    # the shapes a time-sharded step gives the kernels: 32 rows (shards) x
+    # 1 block per launch (pll_scan's (32, 7,350) is the block checked above)
+    one_blk = np.ascontiguousarray(segs[0][:, :2 * cfg.block_size_iq])
+    ts_fe = check_frontend(f"{CH} rows x 1 blk, a time-sharded step",
+                           one_blk)
+    kernels[frontend_fused.name]["max_abs_err"] = max(
+        kernels[frontend_fused.name]["max_abs_err"], ts_fe["max_abs_err"])
+    kernels[frontend_fused.name]["time_sharded_step"] = ts_fe
+    ts_sites = {}
+    for name, bank, rows, n in [
+            (f"{nm}, 1 blk", bk, CH, cfg.if_block) for nm, bk, _, _ in
+            sites[:4]] + [
+            ("rds_baseband_247_640, 1 blk", rx.rds_path.baseband_bank, CH,
+             cfg.if_block),
+            ("rrc, 1 blk", rx.rds_path.rrc_bank, CH, cfg.rds_block)]:
+        t_k, t_p, err, body, extra = check_site(name, bank, rows, n)
+        ts_sites[name] = dict(ms=t_k, plain_ms=t_p, body=body, **extra)
+        kernels[fir_bank.name]["max_abs_err"] = max(
+            kernels[fir_bank.name]["max_abs_err"], err)
+    kernels[fir_bank.name]["time_sharded_step_sites"] = ts_sites
+    print(f"fir_bank over the {len(ts_sites)} sites of one time-sharded "
+          f"step ({CH} rows x 1 blk): kernel "
+          f"{sum(v['ms'] for v in ts_sites.values()):.4f} ms, plain "
+          f"{sum(v['plain_ms'] for v in ts_sites.values()):.4f} ms, bound "
+          f"{sum(v['bound_ms'] for v in ts_sites.values()):.4f} ms")
+    fd_cases["time_sharded_step"] = check_decimate(
+        "a time-sharded step's audio rails", h0, 2 * CH, cfg.if_block,
+        cfg.audio_down)
+    kernels[fir_decimate.name]["max_abs_err"] = max(
+        kernels[fir_decimate.name]["max_abs_err"],
+        fd_cases["time_sharded_step"]["max_abs_err"])
     if args.kernels:
         for mode in (1, 2, 3):      # frontend at the other modes' geometry
             fe_m = Receiver(mode, device=dev).frontend
@@ -1033,7 +1114,7 @@ def main() -> None:
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         bs, fs_ = wbank.init_state(), fe.init_state()
-        bits, nbits, seg_t = [], [], []
+        bits, nbits, seg_t, rails = [], [], [], []
         for seg in wsegs:
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
@@ -1047,9 +1128,13 @@ def main() -> None:
                 fail(f"{path}: non-finite audio")
             bits.append(out.rds_bits)
             nbits.append(out.rds_nbits)
+            rails.append((out.left, out.right))
         count_path(path, needed, ("tiled",))
-        bits = torch.cat(bits, 1).cpu().numpy()
-        nbits = torch.cat(nbits, 1).cpu().numpy()
+        kept = dict(left=torch.cat([r[0] for r in rails], -1).cpu(),
+                    right=torch.cat([r[1] for r in rails], -1).cpu(),
+                    bits=torch.cat(bits, 1).cpu(),
+                    nbits=torch.cat(nbits, 1).cpu())
+        bits, nbits = kept["bits"].numpy(), kept["nbits"].numpy()
         for st in stations:
             k = offs.index(st["offset_hz"])
             ev = decode(RdsFramer, bits, nbits, k)
@@ -1085,14 +1170,15 @@ def main() -> None:
             profile_segment(torch, card, args.profile, path,
                             lambda: wbank.run_wideband_u8(bs, fe, seg, fs_),
                             med - statistics.median(h2d))
+        return kept
 
     ch = Channelizer(cfg, wide_fs, offs).to(dev)
     if not (ch.fold_static and ch.fold_R == 16 and ch.fold_J == 323):
         fail(f"unexpected channelizer geometry (static {ch.fold_static}, "
              f"R {ch.fold_R}, J {ch.fold_J})")
-    run_wideband("two_stage", ch,
-                 (chan_epilogue.name, frontend_fused.name, fir_bank.name,
-                  fir_decimate.name))
+    wb_ref = {"two_stage": run_wideband(
+        "two_stage", ch, (chan_epilogue.name, frontend_fused.name,
+                          fir_bank.name, fir_decimate.name))}
     # card against the port's own CPU run on the first 2 blocks
     first = torch.from_numpy(raw[:2 * 2 * cfg.block_size_iq * WB_MULT])
     u8_card, _ = ch.call_u8(*u8_to_rails(first.to(dev)), ch.init_state())
@@ -1104,15 +1190,16 @@ def main() -> None:
           f"max diff {diff.max().item()} LSB on {frac:.2e} of bytes")
     if not (diff.max().item() <= 1 and frac < 0.01):
         fail("the card's channelizer disagrees with the CPU run")
-    del ch, ch_cpu, u8_card, u8_cpu, diff
+    del ch_cpu, u8_card, u8_cpu, diff
 
-    wf = make_wideband_frontend(cfg, wide_fs, offs).to(dev)
+    wf = make_wideband_frontend(cfg, wide_fs, offs, device=dev)
     if not isinstance(wf, FusedWidebandFrontend):
         fail("make_wideband_frontend did not pick the fused frontend")
     print(f"fused frontend: lo {wf.lo}, R {wf.r_n}, J {wf.j_w}, weights "
           f"{tuple(wf.w.shape)}")
-    run_wideband("fused", wf, (fir_bank.name, fir_decimate.name))
-    del wf, wbank, wsegs
+    wb_ref["fused"] = run_wideband("fused", wf,
+                                   (fir_bank.name, fir_decimate.name))
+    del wbank
 
     # -- 6. the pipe CLI, in a subprocess, at its defaults --------------------
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1193,7 +1280,7 @@ def main() -> None:
                               f"p50 {r[2]:.1f} ms, p99 {r[3]:.1f} ms"
                               for r in rs))
         print("CLI --staged 0 and 1: PCM identical")
-        cfg2 = Receiver(2).cfg
+        cfg2 = Receiver(2, device=dev).cfg
         cap2 = os.path.join(tmp, "mode2.raw")
         synth.station_iq(cfg2, 40, ps_name=PS, pi=PI, pty=PTY)[0].tofile(cap2)
         err2, pcm2 = run_cli(["2", "r", "--pll-tier", "1"], cap2,
@@ -1339,7 +1426,216 @@ def main() -> None:
               f"{sorted(real)} printed")
         if worst > 1:
             fail(f"the checkpointed run differs by {worst} LSB")
-    del raw
+
+    # -- 8. parallel paths at full width (mode 0, type r) ---------------------
+    blk = 2 * cfg.block_size_iq
+    ts_blocks, ts_shards = 2 * CLI_BLOCKS, 32
+    # one 384-block capture, 11.76 s of radio, synthesized whole so that no
+    # two shards hold the same bytes and a join in the wrong order shows
+    long_np, _ = synth.station_iq(cfg, ts_blocks, ps_name=PS, pi=PI, pty=PTY)
+    long_iq = torch.from_numpy(long_np.reshape(ts_blocks, blk)).to(dev)
+    radio_ts = ts_blocks * cfg.block_size_iq / cfg.rf_fs
+
+    def timed(fn):
+        """(result, wall ms) of fn, the device's work included."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def worst_block(ref, got):
+        """Least per-block SNR of (B, n) audio against its reference."""
+        return min(snr_db(ref[b], got[b]) for b in range(ref.shape[0]))
+
+    def decode_stream(bits, nbits):
+        fr = RdsFramer()
+        bits, nbits = bits.cpu().numpy(), nbits.cpu().numpy()
+        for b in range(bits.shape[0]):
+            fr.feed(bits[b, :nbits[b]])
+        return fr.events
+
+    # 8a. exact time sharding of one station (tier 3): the shards are the
+    # 32 rows of one batch, against the sequential receiver on one row
+    reset_counts()
+    ts_out, ts_first_ms = timed(lambda: time_sharded_run(
+        rx, long_iq, ts_shards, overlap=1))
+    count_path("time_sharded", (frontend_fused.name, fir_bank.name,
+                                fir_decimate.name), ("tiled", "general"))
+    ts_warm = [timed(lambda: time_sharded_run(rx, long_iq, ts_shards))[1]
+               for _ in range(3)]
+    (_, seq_out), seq_ms = timed(lambda: rx.run_blocks(rx.init_state(1),
+                                                       long_iq[None]))
+    ts_ms = statistics.median(ts_warm)
+    worst = min(worst_block(seq_out.left[0], ts_out.left),
+                worst_block(seq_out.right[0], ts_out.right))
+    same_bits = (torch.equal(ts_out.rds_bits, seq_out.rds_bits[0])
+                 and torch.equal(ts_out.rds_nbits, seq_out.rds_nbits[0]))
+    ev = decode_stream(ts_out.rds_bits, ts_out.rds_nbits)
+    print(f"time sharding, exact (tier 3): {ts_blocks} blocks "
+          f"({long_iq.numel() / 1e6:.1f} MB u8, {radio_ts:.2f} s of radio) "
+          f"as {ts_shards} shards x {ts_blocks // ts_shards} blocks, overlap "
+          f"1: first run {ts_first_ms:.1f} ms, warm runs "
+          f"{', '.join(f'{t:.1f}' for t in ts_warm)} ms (median "
+          f"{radio_ts / (ts_ms / 1e3):.1f}x real time); sequential "
+          f"run_blocks on one row {seq_ms:.1f} ms "
+          f"({radio_ts / (seq_ms / 1e3):.1f}x real time); host clock, the "
+          f"capture already on the card; on {card}")
+    print(f"time sharding against sequential: worst block {worst:.1f} dB "
+          f"over {ts_blocks} blocks x 2 rails, RDS bits equal {same_bits} "
+          f"({int(seq_out.rds_nbits.sum())} bits), PS {ev.ps_name!r}, PI "
+          f"{ev.pi and hex(ev.pi)}")
+    if not (worst > 100.0 and same_bits and ev.ps_name == PS
+            and ev.pi == PI):
+        fail("exact time sharding disagrees with the sequential receiver")
+    del ts_out, seq_out
+
+    # 8b. approximate time sharding at the default tier 1: pll_scan at 32
+    # rows; against the sequential tier-1 run of the first 4 shards' blocks.
+    # Every shard's slicer re-aligns after its warm-up gate, so a 12-block
+    # shard gives ~0.2 s of bits at a time: PI (in every group) decodes, a
+    # whole PS name (4 groups of one kind) only from longer shards, here 4
+    per = ts_blocks // ts_shards
+    reset_counts()
+    ap_out, ap_ms = timed(lambda: time_sharded_run(rx1, long_iq, ts_shards))
+    count_path("time_sharded_tier1",
+               (frontend_fused.name, fir_bank.name, fir_decimate.name,
+                pll_scan_kernel.name), ("tiled", "general"))
+    if by_path["time_sharded_tier1"][pll_scan_kernel.name] != 2 * (per + 1):
+        fail("pll_scan did not launch twice per step of the 32-row batch")
+    (_, seq1), seq1_ms = timed(lambda: rx1.run_blocks(
+        rx1.init_state(1), long_iq[None, :4 * per]))
+    steady = min(snr_db(getattr(seq1, rail)[0, k * per + j],
+                        getattr(ap_out, rail)[k * per + j])
+                 for rail in ("left", "right") for k in range(4)
+                 for j in range(1, per))
+    head_same = torch.equal(ap_out.left[0], seq1.left[0, 0])
+    ev = decode_stream(ap_out.rds_bits, ap_out.rds_nbits)
+    ap4_out, ap4_ms = timed(lambda: time_sharded_run(rx1, long_iq, 4))
+    ev4 = decode_stream(ap4_out.rds_bits, ap4_out.rds_nbits)
+    print(f"time sharding, approximate (tier 1): {ts_shards} shards, "
+          f"{ap_ms:.1f} ms ({radio_ts / (ap_ms / 1e3):.1f}x real time; "
+          f"sequential tier 1 on the first {4 * per} blocks {seq1_ms:.1f} "
+          f"ms); blocks after each shard's first, shards 0-3: worst "
+          f"{steady:.1f} dB; shard 0's first block identical {head_same}; "
+          f"PI {ev.pi and hex(ev.pi)}, PS {ev.ps_name!r}, groups "
+          f"{ev.groups_decoded}; as 4 shards x {ts_blocks // 4} blocks "
+          f"{ap4_ms:.1f} ms: PS {ev4.ps_name!r}, PI "
+          f"{ev4.pi and hex(ev4.pi)}; on {card}")
+    if not (steady > 25.0 and head_same and ev.pi == PI
+            and ev4.ps_name == PS and ev4.pi == PI):
+        fail("approximate time sharding disagrees with the sequential "
+             "tier-1 receiver")
+    del ap_out, ap4_out, seq1
+
+    # 8c. joint channel x time: 4 shifted channels x 96 blocks as 8 shards
+    jt_ch, jt_blocks, jt_shards = 4, CLI_BLOCKS // 2, 8
+    pairs = long_np[:jt_blocks * blk].reshape(-1, 2)
+    shifts = [0] + [int(v) for v in np.random.default_rng(5).integers(
+        1, len(pairs), jt_ch - 1)]
+    joint = torch.from_numpy(np.stack([
+        np.roll(pairs, -v, axis=0).reshape(jt_blocks, blk)
+        for v in shifts])).to(dev)
+    reset_counts()
+    jt_out, jt_ms = timed(lambda: time_sharded_run_bank(rx, joint,
+                                                        jt_shards))
+    count_path("time_sharded_bank", (frontend_fused.name, fir_bank.name,
+                                     fir_decimate.name),
+               ("tiled", "general"))
+    (_, seq_j), seqj_ms = timed(lambda: rx.run_blocks(rx.init_state(jt_ch),
+                                                      joint))
+    worst = min(worst_block(getattr(seq_j, rail)[c], getattr(jt_out, rail)[c])
+                for rail in ("left", "right") for c in range(jt_ch))
+    same_bits = (torch.equal(jt_out.rds_bits, seq_j.rds_bits)
+                 and torch.equal(jt_out.rds_nbits, seq_j.rds_nbits))
+    names = [decode_stream(jt_out.rds_bits[c], jt_out.rds_nbits[c]).ps_name
+             for c in range(jt_ch)]
+    print(f"joint channel x time: {jt_ch} ch x {jt_blocks} blocks as "
+          f"{jt_shards} shards ({jt_ch * jt_shards} rows): {jt_ms:.1f} ms, "
+          f"run_blocks on the {jt_ch} rows {seqj_ms:.1f} ms; worst block "
+          f"{worst:.1f} dB, RDS bits equal {same_bits}, PS {names}; on "
+          f"{card}")
+    if not (worst > 100.0 and same_bits and names[0] == PS):
+        fail("joint channel x time sharding disagrees with run_blocks")
+    del jt_out, seq_j, joint, long_iq, long_np, pairs
+
+    # 8d. sharded wideband: the 64-station capture over two replicas on
+    # this one card (32 stations each), against phase 5's unsharded runs
+    two = [dev, dev]
+
+    def run_sharded(path, sw, needed):
+        reset_counts()
+        fs_, bs = sw.init_state()
+        outs_s, seg_t = [], []
+        for seg in wsegs:
+            (fs_, bs, out), ms_ = timed(lambda: sw.step(
+                fs_, bs, *u8_to_rails(torch.from_numpy(seg).to(dev))))
+            outs_s.append(gather(out, "cpu"))
+            seg_t.append(ms_)
+        count_path(path, needed, ("tiled",))
+        left, right = (torch.cat([getattr(o, rail) for o in outs_s], -1)
+                       for rail in ("left", "right"))
+        bits = torch.cat([o.rds_bits for o in outs_s], 1)
+        nbits = torch.cat([o.rds_nbits for o in outs_s], 1)
+        return left, right, bits, nbits, seg_t
+
+    def check_sharded(path, ref, left, right, bits, nbits, seg_t):
+        real_snr = min(snr_db(ref[rail][k], got[k])
+                       for rail, got in (("left", left), ("right", right))
+                       for k in WB_SLOTS)
+        # an empty slot's demod is the discriminator of a zero signal,
+        # which no rounding bound holds: the real stations are held equal
+        real = list(WB_SLOTS)
+        same = (torch.equal(bits[real], ref["bits"][real])
+                and torch.equal(nbits[real], ref["nbits"][real]))
+        n_same = sum(torch.equal(bits[k], ref["bits"][k])
+                     for k in range(WB_STATIONS))
+        names = {k: decode(RdsFramer, bits.numpy(), nbits.numpy(), k).ps_name
+                 for k in WB_SLOTS}
+        agree = ("identical" if real_snr > 1000.0
+                 else f"worst {real_snr:.1f} dB")
+        print(f"{path}: {WB_STATIONS} stations over {len(two)} replicas on "
+              f"one card, segments {', '.join(f'{t:.2f}' for t in seg_t)} "
+              f"ms (host clock, H2D and the gather to the host included); "
+              f"real stations against the unsharded run: "
+              f"{agree}, their RDS bits equal {same} (bits equal on "
+              f"{n_same}/{WB_STATIONS} slots); PS {names}; on {card}")
+        if not (real_snr > 70.0 and same and all(
+                names[offs.index(st["offset_hz"])] == st["ps_name"]
+                for st in stations)):
+            fail(f"{path} disagrees with the unsharded wideband path")
+
+    sw2 = ShardedWideband(ch, rx, devices=two)
+    res = run_sharded("sharded_two_stage", sw2,
+                      (chan_epilogue.name, frontend_fused.name,
+                       fir_bank.name, fir_decimate.name))
+    check_sharded("sharded_two_stage", wb_ref["two_stage"], *res)
+    if by_path["sharded_two_stage"][chan_epilogue.name] != 2 * SEGMENTS:
+        fail("chan_epilogue did not launch once per shard and segment")
+    sf2 = ShardedFusedWideband(wf, rx, devices=two)
+    res = run_sharded("sharded_fused", sf2,
+                      (fir_bank.name, fir_decimate.name))
+    check_sharded("sharded_fused", wb_ref["fused"], *res)
+    # retune station 63 (an empty slot of the second shard) onto slot 32's
+    # transmitter: only the second shard's weights change, station 63 then
+    # decodes slot 32's PS and the first shard's stations do not move
+    w_before = [sh.w.clone() for sh in sf2.shards]
+    sf2.retune(WB_STATIONS - 1, offs[32])
+    moved = [not torch.equal(sh.w, w) for sh, w in zip(sf2.shards, w_before)]
+    left_r, _, bits_r, nbits_r, _ = run_sharded(
+        "sharded_fused_retuned", sf2, (fir_bank.name, fir_decimate.name))
+    ps63 = decode(RdsFramer, bits_r.numpy(), nbits_r.numpy(),
+                  WB_STATIONS - 1).ps_name
+    first_same = (torch.equal(left_r[:32], res[0][:32])
+                  and torch.equal(bits_r[:32], res[2][:32]))
+    print(f"sharded_fused retune of station {WB_STATIONS - 1} -> "
+          f"{offs[32]} Hz: shards rewritten {moved}, station "
+          f"{WB_STATIONS - 1} PS {ps63!r}, the first shard's 32 stations "
+          f"unchanged {first_same}")
+    if not (moved == [False, True] and first_same
+            and ps63 == stations[1]["ps_name"]):
+        fail("the sharded retune did not reach its shard and no other")
+    del wb_ref, res, sw2, sf2, ch, wf, wsegs, raw
 
     if "jax" in sys.modules:
         fail("jax was imported")

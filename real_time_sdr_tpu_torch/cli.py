@@ -316,7 +316,7 @@ def run_wideband(args, torch, device, rx, cfg) -> int:
         print(f"error: --wide-fs {wide_fs} must be an integer multiple of "
               f"the mode RF rate {cfg.rf_fs}", file=sys.stderr)
         return 2
-    fe = make_wideband_frontend(cfg, wide_fs, offsets).to(device)
+    fe = make_wideband_frontend(cfg, wide_fs, offsets, device=device)
     fused = isinstance(fe, FusedWidebandFrontend)
     print(f"wideband frontend: "
           f"{'fused one-matmul' if fused else 'two-stage uint8'} path",

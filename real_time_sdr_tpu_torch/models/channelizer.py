@@ -37,6 +37,7 @@ only (TF32 off); the JAX package's bf16 channelizer FIR is not ported.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import NamedTuple
 
@@ -206,6 +207,29 @@ class Channelizer(nn.Module):
                 np.cos(ang[:, :lo]).astype(np.float32)))
             self.register_buffer("fold_us", torch.tensor(
                 np.sin(ang[:, :lo]).astype(np.float32)))
+
+    def station_subset(self, stations: slice) -> "Channelizer":
+        """A copy that extracts only ``stations`` (a slice of the station
+        axis): the same geometry (decimator, tone period, fold R, J and
+        ``lo``) with the station-major tables and the fold weights' columns
+        cut down, so a shard computes exactly the columns the whole
+        channelizer would. The copy owns its buffers."""
+        sub = copy.deepcopy(self)
+        s_ch = len(self.offsets)
+        sub.offsets = self.offsets[stations]
+        if not sub.offsets:
+            raise ValueError(f"{stations} selects no station of {s_ch}")
+        sub._tone_cache = {}
+        for name in ("per_c", "per_s", "fold_uc", "fold_us"):   # (S, n)
+            if hasattr(self, name):
+                setattr(sub, name, getattr(self, name)[stations].clone())
+        for name in ("fold_pc", "fold_ps"):                     # (lo, S)
+            if hasattr(self, name):
+                setattr(sub, name, getattr(self, name)[:, stations].clone())
+        if self.fold:
+            w4 = self.fold_W.reshape(2 * self.fold_J, self.fold_R, 2, s_ch)
+            sub.fold_W = w4[..., stations].reshape(2 * self.fold_J, -1).clone()
+        return sub
 
     @property
     def _device(self) -> torch.device:

@@ -64,6 +64,11 @@ class RdsPath(nn.Module):
             raise ValueError(f"timing must be 'comb' or 'tracked', got "
                              f"{timing!r}")
         self.timing = timing
+        # False: the DSP half runs and ``rds_clean`` comes out, but the
+        # slicer is skipped (bits and n_bits are zeros, the decoder's state
+        # and ``track`` hold, ``block_count`` still advances). Time sharding
+        # decodes the gathered ``rds_clean`` stream once instead.
+        self.emit_bits = True
         self.cfg = cfg
         fs_if = cfg.if_fs
         up, down = cfg.rds_resample
@@ -111,6 +116,9 @@ class RdsPath(nn.Module):
         state holds. The tracked timing loop is not gated (it locks during
         warm-up)."""
         cfg = self.cfg
+        if not self.emit_bits:
+            return (*self._no_bits(clean.shape[:-1], clean.device),
+                    bit_state, track)
         if self.timing == "tracked":
             bits, n_bits, new_bits, track = decode_block_bits_tracked(
                 clean, bit_state, track, cfg.sps, cfg.max_symbols,
@@ -123,6 +131,12 @@ class RdsPath(nn.Module):
         new_bits = BitSyncState(*(torch.where(warm, new, old)
                                   for new, old in zip(new_bits, bit_state)))
         return bits, n_bits, new_bits, track
+
+    def _no_bits(self, lead, device):
+        """Constant (bits, n_bits) of the usual shapes behind ``lead``."""
+        return (torch.zeros((*lead, self.cfg.max_bits), dtype=torch.int32,
+                            device=device),
+                torch.zeros(tuple(lead), dtype=torch.int32, device=device))
 
     def forward(self, demod: torch.Tensor, state: RdsState, band_pre=None):
         """demod: (C, nb*if_block). band_pre: optional (band, new_tail) from
@@ -167,7 +181,10 @@ class RdsPath(nn.Module):
                                filt[:, :-1, n_filt - tl_rrc:]], dim=1)
         (clean,), _ = self.rrc_bank(filt, rrc_tails)
         track = state.track
-        if self.timing == "comb":
+        if not self.emit_bits:
+            bits, n_bits = self._no_bits((n_ch, nb), clean.device)
+            bit_state = state.bits
+        elif self.timing == "comb":
             bits, n_bits, bit_state = decode_segment_bits(
                 clean, state.bits, state.block_count, cfg.sps,
                 cfg.max_symbols, cfg.max_bits, warm_after=WARM_AFTER)

@@ -17,6 +17,7 @@ serving path); RDS timing is the per-block comb or the tracked CDR.
 
 from __future__ import annotations
 
+import copy
 from typing import Any, NamedTuple
 
 import torch
@@ -51,13 +52,16 @@ class Receiver(nn.Module):
     """Configured receiver chain.
 
     mode and type mirror the reference CLI: mono, stereo (``stereo=True``),
-    stereo + RDS (``stereo=True, rds=True``).
+    stereo + RDS (``stereo=True, rds=True``). It runs on the card unless
+    the caller names a device: ``device=None`` is ``"cuda"`` and raises
+    ``RuntimeError`` without one; ``device="cpu"`` runs the kernels' plain
+    versions.
     """
 
     def __init__(self, cfg: ReceiverConfig | int = 0, *, stereo: bool = False,
                  rds: bool = False, pll_tier: int = 1,
                  rds_timing: str = "comb",
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device | None = None):
         super().__init__()
         if isinstance(cfg, int):
             cfg = mode_config(cfg)
@@ -69,6 +73,7 @@ class Receiver(nn.Module):
         self.rds = bool(rds)
         self.pll_tier = pll_tier
         self.device = resolve_device(device)
+        self._replicas: dict[torch.device, Receiver] = {}
         self.frontend = Frontend(cfg)
         self.audio = StereoPath(cfg, pll_tier) if stereo else MonoPath(cfg)
         self.rds_path = (RdsPath(cfg, pll_tier, timing=rds_timing)
@@ -77,6 +82,24 @@ class Receiver(nn.Module):
                                    self.rds_path.band_fir])
                         if stereo and rds else None)
         self.to(self.device)
+
+    def replica(self, device: str | torch.device) -> "Receiver":
+        """This receiver on ``device``: itself when it already lives there,
+        else a copy of its modules and buffers moved there, made once and
+        kept (one replica per device is how the parallel paths spread rows
+        over cards)."""
+        dev = resolve_device(device)
+        if dev == self.device:
+            return self
+        if dev not in self._replicas:
+            cache, self._replicas = self._replicas, {}   # copied with self
+            try:
+                twin = copy.deepcopy(self).to(dev)
+            finally:
+                self._replicas = cache
+            twin.device = dev
+            cache[dev] = twin
+        return self._replicas[dev]
 
     def init_state(self, batch: int) -> ReceiverState:
         """Fresh state for ``batch`` channels."""
@@ -150,6 +173,39 @@ class Receiver(nn.Module):
         Wideband stages run over the whole segment; the narrowband RDS
         tail keeps exact per-block semantics."""
         return self.step(state, iq_segment)
+
+    def run_segment_tiled(self, state: ReceiverState,
+                          iq_segment: torch.Tensor, tile_blocks: int = 12):
+        """A long segment as ``run_segment`` passes over tiles of
+        ``tile_blocks`` blocks, chained through the carried state, with the
+        outputs joined to exactly ``run_segment``'s layout: audio
+        (C, nb*audio_block), ``rds_bits`` / ``rds_clean`` (C, nb, ...),
+        ``rds_nbits`` (C, nb). Equal to one pass up to f32 summation order;
+        the working set stays that of one tile. A segment of at most
+        ``tile_blocks`` blocks (or ``tile_blocks`` < 2) is one pass."""
+        blk = 2 * self.cfg.block_size_iq
+        n_blocks = iq_segment.shape[-1] // blk
+        # tile_blocks >= 2: a one-block pass has no block axis to join on
+        if tile_blocks < 2 or n_blocks <= tile_blocks:
+            return self.step(state, iq_segment)
+        if n_blocks % tile_blocks:
+            raise ValueError(
+                f"run_segment_tiled: {n_blocks} blocks not divisible by "
+                f"tile_blocks={tile_blocks}; pad the segment or pick a "
+                "divisor")
+        outs = []
+        for k in range(n_blocks // tile_blocks):
+            state, out = self.step(
+                state, iq_segment[:, k * tile_blocks * blk:
+                                  (k + 1) * tile_blocks * blk])
+            outs.append(out)
+        # audio streams join in time (last axis), block-major leaves on
+        # their block axis
+        axis = dict(mono=-1, left=-1, right=-1, rds_bits=1, rds_nbits=1,
+                    rds_clean=1)
+        return state, ReceiverOutput(**{
+            f: (None if leaves[0] is None else torch.cat(leaves, dim=axis[f]))
+            for f, leaves in zip(ReceiverOutput._fields, zip(*outs))})
 
     @torch.no_grad()
     def run_segment_demod(self, state: ReceiverState, demod: torch.Tensor):

@@ -25,6 +25,7 @@ Feed either to ``parallel.channel.ChannelBank.run_wideband`` or
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import NamedTuple
 
@@ -33,6 +34,7 @@ import torch
 from torch import nn
 
 from real_time_sdr_tpu_torch.config import ReceiverConfig
+from real_time_sdr_tpu_torch.device import resolve_device
 from real_time_sdr_tpu_torch.ops import filters
 from real_time_sdr_tpu_torch.models.channelizer import (FOLD_R, Channelizer,
                                                         _check_rails,
@@ -46,15 +48,18 @@ WB_LCM_MAX = 32  # largest IF-rate tone lcm the fused fold accepts
 
 
 def make_wideband_frontend(cfg: ReceiverConfig, wide_fs: int,
-                           offsets_hz: list[int], taps_factor: int = 2):
+                           offsets_hz: list[int], taps_factor: int = 2,
+                           device: str | torch.device | None = None):
     """The fused one-matmul frontend when the station grid is eligible
     (every real raster is), else the two-stage Channelizer + uint8
-    receiver path. Move the result to the receiver's device with
-    ``.to(device)``."""
+    receiver path, on ``device``: the card unless the caller names another
+    (``None`` is ``"cuda"`` and raises without one, as ``Receiver``)."""
+    dev = resolve_device(device)
     if FusedWidebandFrontend.eligible(cfg, wide_fs, offsets_hz):
         return FusedWidebandFrontend(cfg, wide_fs, offsets_hz,
-                                     taps_factor=taps_factor)
-    return Channelizer(cfg, wide_fs, offsets_hz, taps_factor=taps_factor)
+                                     taps_factor=taps_factor).to(dev)
+    return Channelizer(cfg, wide_fs, offsets_hz,
+                       taps_factor=taps_factor).to(dev)
 
 
 class FusedWidebandState(NamedTuple):
@@ -190,6 +195,23 @@ class FusedWidebandFrontend(nn.Module):
         self.register_buffer("w", torch.tensor(w2.astype(np.float32)))
         self.register_buffer("pc", torch.tensor(pc.astype(np.float32)))
         self.register_buffer("ps", torch.tensor(ps.astype(np.float32)))
+
+    def station_subset(self, stations: slice) -> "FusedWidebandFrontend":
+        """A copy that computes only ``stations`` (a slice of the station
+        axis): the same taps, ``lo``, R and J with the weights' columns and
+        the rotation tables cut down, so a shard runs ``core`` on exactly
+        the columns the whole frontend would. The copy owns its buffers, so
+        a ``retune`` of it touches no other."""
+        sub = copy.deepcopy(self)
+        s_ch = len(self.offsets)
+        sub.offsets = self.offsets[stations]
+        if not sub.offsets:
+            raise ValueError(f"{stations} selects no station of {s_ch}")
+        w4 = self.w.reshape(2 * self.j_w, self.r_n, 2, s_ch)
+        sub.w = w4[..., stations].reshape(2 * self.j_w, -1).clone()
+        sub.pc = self.pc[:, stations].clone()
+        sub.ps = self.ps[:, stations].clone()
+        return sub
 
     def retune(self, station: int, offset_hz: int) -> None:
         """Re-point one station at a new offset: its columns are rebuilt on

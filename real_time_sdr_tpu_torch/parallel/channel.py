@@ -1,85 +1,179 @@
-"""Channel bank: many FM stations decoded at once.
+"""Channel bank: many FM stations decoded at once, on one card or several.
 
-Port of ``real_time_sdr_tpu/parallel/channel.py`` without a device mesh.
-The receiver already batches channels natively (every tensor has a leading
-channel axis), so the bank is a thin layer that ties the receiver to the
-wideband frontends:
+Port of ``real_time_sdr_tpu/parallel/channel.py``. The receiver already
+batches channels natively (every tensor has a leading channel axis), so the
+bank is a thin layer that ties the receiver to the wideband frontends:
 
-    rx = Receiver(0, stereo=True, rds=True, pll_tier=3, device="cuda")
+    rx = Receiver(0, stereo=True, rds=True, pll_tier=3)
     bank = ChannelBank(rx, 64)
-    fe = make_wideband_frontend(cfg, wide_fs, offsets).to("cuda")
+    fe = make_wideband_frontend(cfg, wide_fs, offsets)
     state, fstate = bank.init_state(), fe.init_state()
     state, out, fstate = bank.run_wideband_u8(state, fe, raw_u8, fstate)
+
+Where JAX shards the channel axis of one global array over a device mesh,
+the port takes a list of devices: the channel axis is split in contiguous,
+equal groups, one replica of the receiver per device, and the host loop
+over the devices only enqueues work (nothing on the device path waits for
+the host), so the cards run side by side. No collective is needed: channels
+never interact.
+
+    bank = ChannelBank(rx, 64, devices=["cuda:0", "cuda:1"])
+    state = bank.init_state()                 # (ReceiverState, ReceiverState)
+    state, out = bank.run_segment(state, bank.place(segments))
+    left = gather(out).left                   # (64, n_audio) on the CPU
+
+With several devices every state, input and output is a plain tuple with
+one tree per device (``utils.state`` walks tuples, so ``save_state`` /
+``load_state`` / ``map_state`` take it as it is); with one device everything
+is the bare tree, as before. A device may be listed twice (two replicas on
+one card).
 """
 
 from __future__ import annotations
 
 import torch
 
+from real_time_sdr_tpu_torch.device import on_device, resolve_devices
 from real_time_sdr_tpu_torch.models.channelizer import Channelizer
 from real_time_sdr_tpu_torch.models.receiver import (Receiver,
                                                      ReceiverOutput,
                                                      ReceiverState)
 from real_time_sdr_tpu_torch.models.wideband_frontend import (
     FusedWidebandFrontend, u8_to_rails)
+from real_time_sdr_tpu_torch.utils.state import map_state
 
-__all__ = ["ChannelBank"]
+__all__ = ["ChannelBank", "split_rows", "gather"]
+
+
+def split_rows(n: int, devices: list, what: str = "channels") -> int:
+    """Rows per device when ``n`` rows tile ``devices`` evenly; raises
+    ``ValueError`` otherwise (the remainder rows would run nowhere)."""
+    if n < 1 or n % len(devices):
+        raise ValueError(f"{n} {what} do not tile {len(devices)} devices")
+    return n // len(devices)
+
+
+def gather(trees, device: str | torch.device = "cpu", axis: int = 0):
+    """What ``ChannelBank.place`` split, joined again: per-device trees (a
+    tuple, one tree per device) -> one tree on ``device`` with the leaves
+    concatenated on ``axis``, the channel axis: 0 for states and segment
+    outputs, 1 for the (B, C, ...) outputs of ``ChannelBank.run``. A bare
+    tree is only moved."""
+    if not isinstance(trees, tuple) or hasattr(trees, "_fields"):
+        return map_state(trees, lambda t: t.to(device))
+    return map_state(trees[0], lambda *leaves: torch.cat(
+        [t.to(device) for t in leaves], dim=axis), *trees[1:])
 
 
 class ChannelBank:
-    """A bank of ``n_channels`` independent receivers on one device."""
+    """A bank of ``n_channels`` independent receivers.
 
-    def __init__(self, rx: Receiver, n_channels: int):
+    ``devices=None`` keeps the bank on the receiver's own device (the card,
+    unless the receiver was built with ``device="cpu"``). A list of devices
+    splits the channels over them in contiguous, equal groups; it raises
+    ``ValueError`` when ``n_channels`` does not tile the list."""
+
+    def __init__(self, rx: Receiver, n_channels: int, devices=None):
         if n_channels < 1:
             raise ValueError(f"n_channels must be >= 1, got {n_channels}")
         self.rx = rx
         self.n = int(n_channels)
+        self.devices = ([rx.device] if devices is None
+                        else resolve_devices(devices))
+        self.per = split_rows(self.n, self.devices)
+        self.replicas = [rx.replica(d) for d in self.devices]
+        self.sharded = len(self.devices) > 1
 
-    def init_state(self) -> ReceiverState:
-        return self.rx.init_state(self.n)
+    def init_state(self):
+        """A ``ReceiverState`` of n channels, or with several devices a
+        tuple of them, ``n / len(devices)`` channels each."""
+        if not self.sharded:
+            return self.rx.init_state(self.n)
+        return tuple(r.init_state(self.per) for r in self.replicas)
 
-    def place(self, arr) -> torch.Tensor:
+    def place(self, arr):
         """A (C, ...) or (B, C, ...) channel-major array as a tensor on the
-        receiver's device (one device: nothing to shard)."""
-        return torch.as_tensor(arr).to(self.rx.device)
+        bank's device; with several devices a tuple of tensors, the channel
+        axis (the second of an array of 3 or more axes) split by rows."""
+        t = torch.as_tensor(arr)
+        if not self.sharded:
+            return t.to(self.devices[0])
+        axis = 1 if t.ndim >= 3 else 0
+        if t.shape[axis] != self.n:
+            raise ValueError(f"array of shape {tuple(t.shape)} has no "
+                             f"{self.n}-channel axis {axis}")
+        return tuple(t.narrow(axis, k * self.per, self.per).to(
+            d, non_blocking=True) for k, d in enumerate(self.devices))
 
-    def step(self, state: ReceiverState, blocks: torch.Tensor):
-        """blocks: (C, 2*block_size_iq) uint8, one block per channel."""
+    def _each(self, call, state, x):
+        """``call(replica, state, rows)`` for every device on its state and
+        its rows: the loop only enqueues, so the devices overlap."""
+        if not self.sharded:
+            return call(self.rx, state, x)
+        if not isinstance(x, tuple):
+            x = self.place(x)
+        if len(state) != len(self.devices) or len(x) != len(self.devices):
+            raise ValueError(f"expected one state and one input per device "
+                             f"({len(self.devices)}), got {len(state)} and "
+                             f"{len(x)}")
+        res = []
+        for r, d, st, xk in zip(self.replicas, self.devices, state, x):
+            with on_device(d):
+                res.append(call(r, st, xk))
+        return tuple(s for s, _ in res), tuple(o for _, o in res)
+
+    def step(self, state, blocks):
+        """blocks: (C, 2*block_size_iq) uint8, one block per channel (with
+        several devices: ``place``'s tuple, or the whole array)."""
         self._rows(blocks, "blocks")
-        return self.rx.step(state, blocks)
+        return self._each(Receiver.step, state, blocks)
 
-    def run(self, state: ReceiverState, blocks: torch.Tensor):
+    def run(self, state, blocks):
         """blocks: (B, C, 2*block_size_iq) uint8: one ``step`` per block, in
         order. Returns (final_state, ReceiverOutput) with every output
         stacked on a leading block axis, e.g. left (B, C, audio_block),
         rds_nbits (B, C)."""
+        return self._each(self._run_one, state, blocks)
+
+    @staticmethod
+    def _run_one(rx: Receiver, state: ReceiverState, blocks: torch.Tensor):
         if blocks.ndim != 3 or blocks.shape[0] == 0:
             raise ValueError(f"blocks must be (B, C, n) with B >= 1, got "
                              f"{tuple(blocks.shape)}")
         outs = []
         for b in range(blocks.shape[0]):
-            state, out = self.step(state, blocks[b])
+            state, out = rx.step(state, blocks[b])
             outs.append(out)
         stacked = ReceiverOutput(*(
             None if leaves[0] is None else torch.stack(leaves, dim=0)
             for leaves in zip(*outs)))
         return state, stacked
 
-    def _rows(self, x: torch.Tensor, what: str) -> None:
-        if x.ndim != 2 or x.shape[0] != self.n:
-            raise ValueError(f"{what} must have {self.n} channel rows, got "
-                             f"{tuple(x.shape)}")
+    def _rows(self, x, what: str) -> None:
+        rows = (sum(t.shape[0] for t in x) if isinstance(x, tuple)
+                else x.shape[0])
+        ndim = x[0].ndim if isinstance(x, tuple) else x.ndim
+        if ndim != 2 or rows != self.n:
+            raise ValueError(f"{what} must have {self.n} channel rows of one "
+                             f"axis each, got {rows} rows of {ndim - 1} axes")
 
-    def run_segment(self, state: ReceiverState, segments: torch.Tensor):
+    def run_segment(self, state, segments):
         """segments: (C, B*2*block_size_iq) uint8, one pass per segment (see
         ``Receiver.run_segment``)."""
         self._rows(segments, "segments")
-        return self.rx.run_segment(state, segments)
+        return self._each(Receiver.run_segment, state, segments)
 
-    def run_segment_demod(self, state: ReceiverState, demod: torch.Tensor):
+    def run_segment_demod(self, state, demod):
         """demod: (C, B*if_block) float32 from an external frontend."""
         self._rows(demod, "demod")
-        return self.rx.run_segment_demod(state, demod)
+        return self._each(Receiver.run_segment_demod, state, demod)
+
+    def _one_device(self, what: str) -> None:
+        if self.sharded:
+            raise ValueError(
+                f"{what} feeds one frontend on one device; over several "
+                "devices use parallel.wideband.ShardedWideband / "
+                "ShardedFusedWideband, which split the frontend too")
 
     def run_channelized(self, state, ch: Channelizer, i_wide, q_wide,
                         cstate):
@@ -88,6 +182,7 @@ class ChannelBank:
         kernel on the card) feed ``run_segment``. Returns
         ``(state, out, cstate)``. The JAX counterpart is
         ``run_channelized_jit``."""
+        self._one_device("run_channelized")
         u8, cstate = ch.call_u8(i_wide, q_wide, cstate)
         state, out = self.run_segment(state, u8)
         return state, out, cstate
@@ -99,6 +194,7 @@ class ChannelBank:
         The frontend reads its own weight buffers, which ``retune`` updates
         in stream order. The JAX counterpart is
         ``run_channelized_fused_jit``."""
+        self._one_device("run_channelized_fused")
         demod, wstate = wf(i_wide, q_wide, wstate)
         state, out = self.run_segment_demod(state, demod)
         return state, out, wstate

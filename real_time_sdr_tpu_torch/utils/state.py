@@ -35,7 +35,8 @@ from real_time_sdr_tpu_torch.models.audio import MonoState, StereoState
 from real_time_sdr_tpu_torch.models.channelizer import ChannelizerState
 from real_time_sdr_tpu_torch.models.frontend import FrontendState
 from real_time_sdr_tpu_torch.models.rds import RdsState
-from real_time_sdr_tpu_torch.models.receiver import ReceiverState
+from real_time_sdr_tpu_torch.models.receiver import (ReceiverOutput,
+                                                     ReceiverState)
 from real_time_sdr_tpu_torch.models.wideband_frontend import \
     FusedWidebandState
 from real_time_sdr_tpu_torch.ops.pll import PllCarry
@@ -46,33 +47,39 @@ __all__ = ["map_state", "state_from_numpy", "state_to_numpy", "save_state",
            "load_state"]
 
 _CLASSES = {cls.__name__: cls for cls in (
-    ReceiverState, FrontendState, MonoState, StereoState, RdsState,
-    FFSyncCarry, PllCarry, BitSyncState, TimingTrack, ChannelizerState,
-    FusedWidebandState)}
+    ReceiverState, ReceiverOutput, FrontendState, MonoState, StereoState,
+    RdsState, FFSyncCarry, PllCarry, BitSyncState, TimingTrack,
+    ChannelizerState, FusedWidebandState)}
 
 
-def map_state(tree, leaf_fn):
+def map_state(tree, leaf_fn, *others):
     """Apply ``leaf_fn`` to every array leaf of a state tree, rebuilding it
     from the port's state classes (matched by class name), e.g.
     ``map_state(state, lambda t: t[:2].cpu())`` for channels 0-1 on the
-    CPU."""
+    CPU. With further trees of the same structure, ``leaf_fn`` gets one
+    leaf of each: ``map_state(a, lambda x, y: x - y, b)`` walks two states leaf
+    by leaf (``None`` leaves stay ``None``)."""
     if tree is None:
         return None
     fields = getattr(tree, "_fields", None)
     if fields is None:
         if isinstance(tree, (tuple, list)):
-            return type(tree)(map_state(child, leaf_fn) for child in tree)
-        return leaf_fn(tree)
+            return type(tree)(
+                map_state(child, leaf_fn, *(o[i] for o in others))
+                for i, child in enumerate(tree))
+        return leaf_fn(tree, *others)
     name = type(tree).__name__
     cls = _CLASSES.get(name)
     if cls is None:
         raise TypeError(f"no port state class for {name}")
     if tuple(fields) != cls._fields:
         raise TypeError(f"{name} fields {fields} != the port's {cls._fields}")
-    return cls(*(map_state(getattr(tree, f), leaf_fn) for f in fields))
+    return cls(*(map_state(getattr(tree, f), leaf_fn,
+                           *(getattr(o, f) for o in others))
+                 for f in fields))
 
 
-def state_from_numpy(tree, device: str | torch.device = "cpu"):
+def state_from_numpy(tree, device: str | torch.device):
     """A state tree with array leaves (numpy, JAX fetched to numpy, or the
     port's own ``state_to_numpy`` output) -> the port's state on
     ``device``. Dtypes are kept."""

@@ -17,6 +17,7 @@
   leaf for leaf, for both wideband frontends.
 """
 
+import functools
 import json
 
 import jax
@@ -36,11 +37,14 @@ from real_time_sdr_tpu.utils import synth as jsynth
 from real_time_sdr_tpu.utils.audio import stereo_pcm as jstereo_pcm
 from real_time_sdr_tpu_torch import cli
 from real_time_sdr_tpu_torch.models.channelizer import Channelizer
-from real_time_sdr_tpu_torch.models.receiver import Receiver
+from real_time_sdr_tpu_torch.models.receiver import Receiver as _Receiver
 from real_time_sdr_tpu_torch.models.wideband_frontend import \
     FusedWidebandFrontend
 from real_time_sdr_tpu_torch.parallel.channel import ChannelBank
 from real_time_sdr_tpu_torch.utils import state as tstate
+
+# every test here runs on the CPU: the receiver's own default is the card
+Receiver = functools.partial(_Receiver, device="cpu")
 
 
 def _snr(ref, y):
@@ -196,9 +200,9 @@ def test_tuple_and_list_trees(kind, tmp_path):
     dropped), and ``save_state`` / ``load_state`` round-trip it."""
     rx = Receiver(0, stereo=True, rds=True)
     a = tstate.state_from_numpy(_filled(tstate.state_to_numpy(
-        rx.init_state(2)), 1))
+        rx.init_state(2)), 1), "cpu")
     b = tstate.state_from_numpy(_filled(tstate.state_to_numpy(
-        Receiver(0).init_state(1)), 2))
+        Receiver(0).init_state(1)), 2), "cpu")
     tree = {"tuple": (a, b), "list": [a, b], "nested": (a, [b, None])}[kind]
     want = jax.tree_util.tree_leaves(tree)
     got = tstate._leaves(tree)

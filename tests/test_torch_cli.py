@@ -20,6 +20,7 @@ EOF partial segment at its exact length, and a checkpoint taken after
 LSB of the single run's.
 """
 
+import functools
 import contextlib
 import io
 import json
@@ -31,9 +32,12 @@ import torch
 
 from real_time_sdr_tpu_torch import cli
 from real_time_sdr_tpu_torch.config import mode_config
-from real_time_sdr_tpu_torch.models.receiver import Receiver
+from real_time_sdr_tpu_torch.models.receiver import Receiver as _Receiver
 from real_time_sdr_tpu_torch.utils import synth
 from real_time_sdr_tpu_torch.utils.audio import stereo_pcm
+
+# every test here runs on the CPU: the receiver's own default is the card
+Receiver = functools.partial(_Receiver, device="cpu")
 
 CFG = mode_config(0)
 RDS_PREFIXES = ("PI:", "PTY:", "Program Service:", "RadioText:",

@@ -304,7 +304,7 @@ def test_receiver_on_card_matches_cpu(card):
     rx, iq = card
     half = iq.shape[0] // 2
     batch = torch.stack([iq, iq.roll(2 * 7919)])
-    ref = Receiver(0, stereo=True, rds=True, pll_tier=3)
+    ref = Receiver(0, stereo=True, rds=True, pll_tier=3, device="cpu")
     st, out = rx.run_segment(rx.init_state(2), batch[:, :half].cuda())
     _, rout = ref.run_segment(ref.init_state(2), batch[:, :half])
     for c in range(2):
@@ -438,7 +438,8 @@ def test_audio_site_on_card_matches_cpu(card, mode):
     static-body launch per segment, the FIR bank one fewer): audio against
     the CPU run > 60 dB over two chained 3-block segments."""
     rx = Receiver(mode, stereo=True, rds=True, pll_tier=3, device="cuda")
-    ref = Receiver(mode, stereo=True, rds=True, pll_tier=3)
+    ref = Receiver(mode, stereo=True, rds=True, pll_tier=3,
+                   device="cpu")
     assert isinstance(rx.audio.resamp_bank, DecimatingFIR)
     iq, _ = synth.station_iq(rx.cfg, 6, ps_name="AUDIOFIR")
     x = torch.from_numpy(iq)
@@ -474,7 +475,7 @@ def test_two_stage_wideband_on_card_matches_cpu(card):
                                    255).astype(np.uint8))
     ch_gpu = Channelizer(cfg, wide_fs, offs).cuda()
     ch_cpu = Channelizer(cfg, wide_fs, offs)
-    ref = Receiver(0, stereo=True, rds=True, pll_tier=3)
+    ref = Receiver(0, stereo=True, rds=True, pll_tier=3, device="cpu")
     bank, bank_cpu = ChannelBank(rx, 4), ChannelBank(ref, 4)
     cs, cs_cpu = ch_gpu.init_state(), ch_cpu.init_state()
     bs = bank.init_state()
@@ -596,7 +597,7 @@ def test_pll_tier1_receiver_on_card_matches_cpu(card):
     the CPU run from the same state: audio > 60 dB."""
     _, iq = card
     rx = Receiver(0, stereo=True, rds=True, device="cuda")
-    ref = Receiver(0, stereo=True, rds=True)
+    ref = Receiver(0, stereo=True, rds=True, device="cpu")
     x = iq[: 2 * 2 * rx.cfg.block_size_iq][None]
     before = pll_scan_kernel.launches
     _, out = rx.run_segment(rx.init_state(1), x.cuda())
@@ -642,3 +643,85 @@ def test_fir_bank_mode_sites_match_plain(card, mode, site):
     yp = fir_bank_plain(xx, bank.w, g)
     assert yk.shape == yp.shape
     assert _snr(yp, yk) > 110.0
+
+
+# -- parallel paths on the card ---------------------------------------------
+
+@pytest.mark.parametrize("timing", ["comb", "tracked"])
+def test_time_sharding_exact_on_card(card, timing):
+    """16 blocks as 4 shards (4 batch rows) against the sequential
+    ``run_blocks`` on one row, both on the card: audio > 100 dB on every
+    block, RDS bits equal; the kernels run at the 4-row shapes."""
+    from real_time_sdr_tpu_torch.parallel.time_shard import time_sharded_run
+    rx = Receiver(0, stereo=True, rds=True, pll_tier=3, rds_timing=timing,
+                  device="cuda")
+    iq, _ = synth.station_iq(rx.cfg, 16, ps_name="CARDSHRD")
+    blocks = torch.from_numpy(iq.reshape(16, -1))
+    before = (frontend_fused.launches, fir_bank.launches,
+              fir_decimate.launches)
+    out = time_sharded_run(rx, blocks, 4)         # devices: the visible card
+    assert out.left.device.type == "cuda"
+    after = (frontend_fused.launches, fir_bank.launches,
+             fir_decimate.launches)
+    assert all(a > b for a, b in zip(after, before))
+    assert after[0] - before[0] == 5                  # 1 halo + 4 blocks
+    _, seq = rx.run_blocks(rx.init_state(1), blocks[None].cuda())
+    for b in range(16):
+        assert _snr(seq.left[0, b], out.left[b]) > 100.0, b
+        assert _snr(seq.right[0, b], out.right[b]) > 100.0, b
+    assert int(seq.rds_nbits.sum()) > 0
+    assert torch.equal(out.rds_nbits, seq.rds_nbits[0])
+    assert torch.equal(out.rds_bits, seq.rds_bits[0])
+
+
+def test_sharded_wideband_on_card(card):
+    """Both sharded wideband classes on ``[cuda, cuda]`` (two replicas on
+    one card), 4 stations, two chained 4-block segments, against the
+    unsharded paths: audio > 70 dB, RDS bits equal; one ``chan_epilogue``
+    launch per shard and segment; a retune reaches only its shard."""
+    from real_time_sdr_tpu_torch.models.wideband_frontend import (
+        FusedWidebandFrontend, u8_to_rails)
+    from real_time_sdr_tpu_torch.parallel.channel import gather
+    from real_time_sdr_tpu_torch.parallel.wideband import (
+        ShardedFusedWideband, ShardedWideband)
+    rx, _ = card
+    cfg = rx.cfg
+    wide_fs = 4 * cfg.rf_fs
+    offs = [-450_000, -150_000, 150_000, 450_000]
+    scene = [dict(offset_hz=f, ps_name=f"CARD-{k}  ", pi=0x5100 + k)
+             for k, f in enumerate(offs)]
+    iw, qw, _ = synth.wideband_iq(cfg, wide_fs, scene, 8)
+    x = np.empty(2 * len(iw), np.float32)
+    x[0::2], x[1::2] = iw, qw
+    raw = torch.from_numpy(np.clip(np.round(128 + 127 * x), 0,
+                                   255).astype(np.uint8)).cuda()
+    devs = ["cuda", "cuda"]
+    bank = ChannelBank(rx, 4)
+    for fe, cls in ((Channelizer(cfg, wide_fs, offs).cuda(), ShardedWideband),
+                    (FusedWidebandFrontend(cfg, wide_fs, offs).cuda(),
+                     ShardedFusedWideband)):
+        sw = cls(fe, rx, devices=devs)
+        fs, bs = sw.init_state()
+        fs_u, bs_u = fe.init_state(), bank.init_state()
+        before = chan_epilogue.launches
+        half = raw.shape[0] // 2
+        for k in range(2):
+            i_w, q_w = u8_to_rails(raw[k * half:(k + 1) * half])
+            fs, bs, out = sw.step(fs, bs, i_w, q_w)
+            bs_u, out_u, fs_u = bank.run_wideband(bs_u, fe, i_w, q_w, fs_u)
+            got = gather(out, "cuda")
+            assert _snr(out_u.left, got.left) > 70.0
+            assert _snr(out_u.right, got.right) > 70.0
+            assert torch.equal(got.rds_bits, out_u.rds_bits)
+            assert torch.equal(got.rds_nbits, out_u.rds_nbits)
+        assert int(got.rds_nbits.sum()) > 0
+        if cls is ShardedWideband:
+            # 2 shards + the unsharded reference, per segment
+            assert chan_epilogue.launches - before == 2 * 3
+        else:
+            w0 = sw.shards[0].w.clone()
+            w1 = sw.shards[1].w.clone()
+            sw.retune(3, offs[2])
+            assert torch.equal(sw.shards[0].w, w0)
+            assert not torch.equal(sw.shards[1].w, w1)
+            assert sw.offsets == offs[:3] + [offs[2]]

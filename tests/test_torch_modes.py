@@ -17,6 +17,7 @@ package's receiver.
   carrier tier is 1, as in the JAX package.
 """
 
+import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,9 +27,12 @@ import torch
 from real_time_sdr_tpu.config import mode_config as jmode_config
 from real_time_sdr_tpu.models.receiver import Receiver as JReceiver
 from real_time_sdr_tpu.utils import synth as jsynth
-from real_time_sdr_tpu_torch.models.receiver import Receiver
+from real_time_sdr_tpu_torch.models.receiver import Receiver as _Receiver
 from real_time_sdr_tpu_torch.ops.pll import PllCarry
 from real_time_sdr_tpu_torch.ops.sync import FeedforwardSync, PllLoop
+
+# every test here runs on the CPU: the receiver's own default is the card
+Receiver = functools.partial(_Receiver, device="cpu")
 
 N_BLOCKS = 8
 

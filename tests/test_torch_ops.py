@@ -16,6 +16,7 @@ against the JAX package's, ``StereoPath`` > 60 dB (the chain gate: it holds
 the tier-3 carrier sync), carried tails equal within f32 rounding.
 """
 
+import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,7 +43,7 @@ from real_time_sdr_tpu_torch.config import mode_config
 from real_time_sdr_tpu_torch.models import audio as taudio_paths
 from real_time_sdr_tpu_torch.models.channelizer import Channelizer
 from real_time_sdr_tpu_torch.models.frontend import Frontend
-from real_time_sdr_tpu_torch.models.receiver import Receiver
+from real_time_sdr_tpu_torch.models.receiver import Receiver as _Receiver
 from real_time_sdr_tpu_torch.ops import fir as tfir
 from real_time_sdr_tpu_torch.ops.cuda import (chan_epilogue, fir_bank,
                                               fir_decimate, frontend_fused)
@@ -59,6 +60,9 @@ from real_time_sdr_tpu_torch.ops.cuda.frontend_fused import (SPAN, TILE,
 from real_time_sdr_tpu_torch.ops.demod import fm_demod
 from real_time_sdr_tpu_torch.utils import audio as taudio
 from real_time_sdr_tpu_torch.utils.state import state_from_numpy
+
+# every test here runs on the CPU: the receiver's own default is the card
+Receiver = functools.partial(_Receiver, device="cpu")
 
 FS_IF = 240_000
 
@@ -519,7 +523,7 @@ def test_audio_paths_match_jax(mode):
         _, st = run(jnp.asarray(x[c, :n]), jst[c])
         mid.append(_np_tree(st))
     state = state_from_numpy(jax.tree_util.tree_map(
-        lambda *a: np.stack(a), *mid))
+        lambda *a: np.stack(a), *mid), "cpu")
     (left, right), new = tster(torch.from_numpy(x[:, n:]), state)
     for c in range(2):
         (jl, jr), jnew = run(jnp.asarray(x[c, n:]),

@@ -16,6 +16,7 @@ port mid-stream. The port's jax-free copies (code constants, station
 synthesis, framer) are held equal to the originals.
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -34,7 +35,7 @@ from real_time_sdr_tpu.ops import rds_bits as jbits
 from real_time_sdr_tpu.utils import synth as jsynth
 from real_time_sdr_tpu_torch.models.frontend import Frontend
 from real_time_sdr_tpu_torch.models.rds_framing import PTY_NAMES, RdsFramer
-from real_time_sdr_tpu_torch.models.receiver import Receiver
+from real_time_sdr_tpu_torch.models.receiver import Receiver as _Receiver
 from real_time_sdr_tpu_torch.ops import fir as tfir
 from real_time_sdr_tpu_torch.ops import rds_codes
 from real_time_sdr_tpu_torch.ops.cuda import fir_bank, frontend_fused
@@ -42,6 +43,9 @@ from real_time_sdr_tpu_torch.utils import synth as tsynth
 from real_time_sdr_tpu_torch.utils.audio import mono_pcm, stereo_pcm
 from real_time_sdr_tpu_torch.utils.state import (state_from_numpy,
                                                  state_to_numpy)
+
+# every test here runs on the CPU: the receiver's own default is the card
+Receiver = functools.partial(_Receiver, device="cpu")
 
 REPO = Path(__file__).resolve().parents[1]
 N_BLOCKS = 30           # PS needs ~30 blocks to decode (tier 3, warm-up)
@@ -144,7 +148,7 @@ def test_state_carried_over_from_jax():
         mids.append(_np_tree(st))
         refs.append(run(st, jnp.asarray(iq[c, half:]))[1])
     rx = Receiver(0, stereo=True, rds=True, pll_tier=3)
-    state = state_from_numpy(_stack(mids))
+    state = state_from_numpy(_stack(mids), "cpu")
     assert int(state.rds.block_count[0]) == 6
     assert state.rds.bits.first.dtype == torch.bool
     assert state.frontend.iq_tail.dtype == torch.uint8
@@ -157,7 +161,7 @@ def test_state_carried_over_from_jax():
         np.testing.assert_array_equal(out.rds_nbits[c].numpy(),
                                       np.asarray(ref.rds_nbits))
     back = state_to_numpy(new_state)
-    again = state_from_numpy(back)
+    again = state_from_numpy(back, "cpu")
     for a, b in zip(jax.tree_util.tree_leaves(new_state),
                     jax.tree_util.tree_leaves(again)):
         assert a.dtype == b.dtype
@@ -264,12 +268,13 @@ def test_framer_copy_events_identical(slice_run):
 
 
 def test_port_runs_without_jax():
-    """Importing the port and running a CPU run_segment, one tier-1 block,
-    one wideband segment through both wideband frontends and the channel
-    bank, the CLI on one block and the wideband CLI on one block of two
-    stations with a checkpoint, loads no jax, no module of the JAX
-    package ``real_time_sdr_tpu`` and no ``golden`` (a subprocess: this
-    test process already imported all three)."""
+    """Importing the port and running a CPU run_segment, a 2-shard
+    time-sharded run, one tier-1 block, one wideband segment through both
+    wideband frontends, the channel bank and the sharded wideband classes,
+    the CLI on one block and the wideband CLI on one block of two stations
+    with a checkpoint, loads no jax, no module of the JAX package
+    ``real_time_sdr_tpu`` and no ``golden`` (a subprocess: this test
+    process already imported all three)."""
     code = textwrap.dedent("""
         import os
         import sys
@@ -284,13 +289,20 @@ def test_port_runs_without_jax():
         from real_time_sdr_tpu_torch.models.wideband_frontend import (
             make_wideband_frontend)
         from real_time_sdr_tpu_torch.parallel.channel import ChannelBank
+        from real_time_sdr_tpu_torch.parallel import (distributed,
+                                                      time_shard, wideband)
         from real_time_sdr_tpu_torch.utils import state, synth, audio
-        rx = Receiver(0, stereo=True, rds=True, pll_tier=3)
+        rx = Receiver(0, stereo=True, rds=True, pll_tier=3, device="cpu")
         iq, _ = synth.station_iq(rx.cfg, 2)
         st, out = rx.run_segment(rx.init_state(1),
                                  torch.from_numpy(iq)[None])
         assert out.left.shape == (1, 2 * rx.cfg.audio_block)
-        rx1 = Receiver(0, stereo=True, rds=True)      # tier 1, the default
+        sharded = time_shard.time_sharded_run(
+            rx, torch.from_numpy(iq).reshape(2, -1), 2, devices=["cpu"])
+        assert sharded.left.shape == (2, rx.cfg.audio_block)
+        assert distributed.host_channel_slice(4) == slice(0, 4)
+        rx1 = Receiver(0, stereo=True, rds=True,      # tier 1, the default
+                       device="cpu")
         assert isinstance(rx1.audio.sync, sync.PllLoop)
         st1, out1 = rx1.step(rx1.init_state(1),
                              torch.from_numpy(iq[:iq.shape[0] // 2])[None])
@@ -308,7 +320,8 @@ def test_port_runs_without_jax():
             dict(offset_hz=f) for f in offs], 1)
         raw = torch.from_numpy(synth.fm_iq(wide_fs, len(iw)))
         bank = ChannelBank(rx, 2)
-        for fe in (make_wideband_frontend(rx.cfg, wide_fs, offs),
+        for fe in (make_wideband_frontend(rx.cfg, wide_fs, offs,
+                                          device="cpu"),
                    Channelizer(rx.cfg, wide_fs, offs)):
             _, out, fst = bank.run_wideband(
                 bank.init_state(), fe, torch.from_numpy(iw),
@@ -317,7 +330,12 @@ def test_port_runs_without_jax():
             _, out, _ = bank.run_wideband_u8(bank.init_state(), fe, raw,
                                              fst)
             assert out.left.shape == (2, rx.cfg.audio_block)
-            state.state_from_numpy(state.state_to_numpy(fst))
+            state.state_from_numpy(state.state_to_numpy(fst), "cpu")
+            cls = (wideband.ShardedWideband if isinstance(fe, Channelizer)
+                   else wideband.ShardedFusedWideband)
+            sw = cls(fe, rx, devices=["cpu", "cpu"])
+            _, _, outs = sw.step(*sw.init_state(), iw, qw)
+            assert outs[1].left.shape == (1, rx.cfg.audio_block)
         with tempfile.TemporaryDirectory() as d:
             wide = os.path.join(d, "wide.raw")
             raw.numpy().tofile(wide)

@@ -226,7 +226,7 @@ def test_tracked_receiver_decodes_clock_ppm(ppm):
     CDR locks and decodes the PS name and PI."""
     nb = 30
     rx = Receiver(0, stereo=True, rds=True, pll_tier=3,
-                  rds_timing="tracked")
+                  rds_timing="tracked", device="cpu")
     iq, _ = synth.station_iq(rx.cfg, nb, ps_name="PPM-TRAK", pi=0x2468,
                              pty=5, rds_clock_ppm=ppm)
     state, out = rx.run_segment(rx.init_state(1), torch.from_numpy(iq)[None])

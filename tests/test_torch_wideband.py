@@ -28,6 +28,7 @@ Bounds:
   wideband paths.
 """
 
+import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,13 +45,16 @@ from real_time_sdr_tpu.utils import synth as jsynth
 from real_time_sdr_tpu_torch.config import mode_config
 from real_time_sdr_tpu_torch.models.channelizer import Channelizer
 from real_time_sdr_tpu_torch.models.rds_framing import RdsFramer
-from real_time_sdr_tpu_torch.models.receiver import Receiver
+from real_time_sdr_tpu_torch.models.receiver import Receiver as _Receiver
 from real_time_sdr_tpu_torch.models.wideband_frontend import (
     FusedWidebandFrontend, make_wideband_frontend, u8_to_rails)
 from real_time_sdr_tpu_torch.parallel.channel import ChannelBank
 from real_time_sdr_tpu_torch.utils import synth as tsynth
 from real_time_sdr_tpu_torch.utils.state import (state_from_numpy,
                                                  state_to_numpy)
+
+# every test here runs on the CPU: the receiver's own default is the card
+Receiver = functools.partial(_Receiver, device="cpu")
 
 CFG = mode_config(0)        # the port's
 JCFG = jmode_config(0)      # the JAX package's
@@ -152,8 +156,8 @@ def test_channelizer_matches_jax(form):
         for a, b in zip(ps_u8, ps_new):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
         if k == 1:
-            resumed = state_from_numpy(jax.tree_util.tree_map(np.asarray,
-                                                              js_new))
+            resumed = state_from_numpy(
+                jax.tree_util.tree_map(np.asarray, js_new), "cpu")
             assert type(resumed).__name__ == "ChannelizerState"
         js, ps = js_new, ps_new
     seg = slice(2 * n, 3 * n)
@@ -199,8 +203,8 @@ def test_fused_frontend_matches_jax():
         np.testing.assert_array_equal(ps.i_tail.numpy(),
                                       np.asarray(js_new.i_tail))
         if k == 0:
-            resumed = state_from_numpy(jax.tree_util.tree_map(np.asarray,
-                                                              js_new))
+            resumed = state_from_numpy(
+                jax.tree_util.tree_map(np.asarray, js_new), "cpu")
         js = js_new
     td2, _ = wf(_t(iw[n:]), _t(qw[n:]), resumed)
     assert _snr(jd, td2) > 80.0
@@ -275,8 +279,8 @@ def test_fused_eligibility_matches_jax(grid):
     if not FusedWidebandFrontend.eligible(CFG, WIDE_FS, offs):
         with pytest.raises(ValueError):
             FusedWidebandFrontend(CFG, WIDE_FS, offs)
-        assert isinstance(make_wideband_frontend(CFG, WIDE_FS, offs),
-                          Channelizer)
+        assert isinstance(make_wideband_frontend(CFG, WIDE_FS, offs,
+                                                 device="cpu"), Channelizer)
 
 
 def test_fused_precision_and_dtype_errors():
@@ -404,7 +408,8 @@ def test_bank_on_jax_channelizer_u8_matches_jax_bank(rx):
     jbank = JBank(jrx, 4)
     jst, _ = jbank.run_segment(jbank.init_state(), jnp.asarray(u8[:, :cut]))
     _, jout = jbank.run_segment(jst, jnp.asarray(u8[:, cut:]))
-    state = state_from_numpy(jax.tree_util.tree_map(np.asarray, jst))
+    state = state_from_numpy(jax.tree_util.tree_map(np.asarray, jst),
+                             "cpu")
     _, out = ChannelBank(rx, 4).run_segment(state, _t(u8[:, cut:]))
     for s in range(4):
         assert _snr(jout.left[s], out.left[s]) > 60.0
@@ -436,7 +441,8 @@ def test_bank_step_and_run_match_jax_bank(rx):
         iq[:, 6 * blk:].reshape(2, 2, blk).transpose(1, 0, 2))   # (B, C, n)
     _, jout = jbank.run(jst, jnp.asarray(blocks))
     bank = ChannelBank(rx, 2)
-    state0 = state_from_numpy(jax.tree_util.tree_map(np.asarray, jst))
+    state0 = state_from_numpy(jax.tree_util.tree_map(np.asarray, jst),
+                             "cpu")
     placed = bank.place(blocks)
     assert placed.device == rx.device and placed.dtype == torch.uint8
     st_run, out = bank.run(state0, placed)
@@ -486,7 +492,8 @@ def test_slice_decodes_both_stations(rx, scene, path):
     each station's tone within 10 Hz."""
     iw, qw, truths = scene
     offs = [s["offset_hz"] for s in STATIONS]
-    fe = (make_wideband_frontend(CFG, WIDE_FS, offs) if path == "fused"
+    fe = (make_wideband_frontend(CFG, WIDE_FS, offs, device="cpu")
+          if path == "fused"
           else Channelizer(CFG, WIDE_FS, offs))
     assert isinstance(fe, FusedWidebandFrontend) == (path == "fused")
     bank = ChannelBank(rx, 2)
@@ -528,7 +535,7 @@ def test_wideband_states_round_trip():
     wf = FusedWidebandFrontend(CFG, WIDE_FS, RASTER4)
     ch = Channelizer(CFG, WIDE_FS, RASTER4)
     for st in (wf.init_state(), ch.init_state()):
-        back = state_from_numpy(state_to_numpy(st))
+        back = state_from_numpy(state_to_numpy(st), "cpu")
         assert type(back) is type(st)
         assert back.pos.ndim == 0 and back.pos.dtype == torch.int32
         for a, b in zip(st, back):
