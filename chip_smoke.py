@@ -34,7 +34,8 @@ non-zero on failure:
    Newton twin > 40 dB against the kernel over 2 blocks, with its time.
    Beside each kernel's time stand its bound (the larger of its bytes,
    each input read and each output written once, over 3.35 TB/s and its
-   f32 operations over 67 TFLOP/s, the H100 SXM data-sheet peaks) and,
+   f32 operations over 67 TFLOP/s, the H100 SXM data-sheet peaks of
+   ``utils.logging``; the counts are the modules' ``cost()``) and,
    where one PyTorch call computes the same function (``conv1d`` for a
    FIR without upsampling), that call's time;
 4. mode-0 path: a synthetic station tiled to 32 channels (distinct time
@@ -48,10 +49,21 @@ non-zero on failure:
    of one PS segment); its left/right channels carry their tones;
    channels 0-1 of
    the first two segments must agree with the port's own CPU run (audio
-   > 60 dB, RDS bits equal from a carried state); warm segments are timed
-   for the aggregate real-time multiple; then the same 32 x 12 segments
+   > 60 dB, RDS bits equal from a carried state); host-staged ingest: the
+   three segments' staged cells (``utils.benchkit.stage_cells``, pinned
+   host memory, asynchronous uploads) through ``run_segment_staged`` with
+   the unstaged segment 1 between them must equal three unstaged calls in
+   every output leaf and the final state (``torch.equal``), launch the
+   frontend, FIR-bank and decimating-FIR kernels as often, and give the
+   same ``digest_step``; warm staged and unstaged segments in turns (8
+   each, host staging and H2D included, each H2D printed); the roofline
+   report (``utils.logging.speed_of_light_report``) at 32 x 12, whose
+   kernel rows must equal phase 3's bounds within 1 %; warm segments are
+   timed for the aggregate real-time multiple; then the same 32 x 12
+   segments
    at the default tier 1 (``pll_scan`` launches rise, PS/PI decode, warm
-   segments timed beside tier 3; ``pll_scan`` again > 80 dB against its
+   segments timed beside tier 3, its roofline report beside the loops'
+   chain floor; ``pll_scan`` again > 80 dB against its
    plain version, on the stereo and RDS pilots of one real tier-1 segment
    at (32, 88,200) with the plain version on channels 0-1, and at the
    CLI's (1, 7,350), each with kernel ms), and one 2-block segment at
@@ -81,8 +93,10 @@ non-zero on failure:
    and PTY on stderr, the exact PCM byte count, the kernels launched
    (its ``kernel launches`` line), its real-time multiple and p50/p99
    ingest->PCM latency against the 30.6 ms block deadline; then
-   ``--staged 0``, ``0`` and ``1`` with ``--stats`` (identical PCM; each
-   run's ms per block and p50/p99 printed beside the pinned upload's);
+   ``--staged 0``, ``0`` and ``1`` with ``--stats`` (``1``, the default,
+   serves ``run_segment_staged``: identical PCM and RDS lines; each run's
+   ms per block and p50/p99 printed); a staged ``--checkpoint`` pair over
+   the capture's two halves joins to the first run's PCM byte for byte;
    ``2 r --pll-tier 1`` decodes PS;
 7. wideband CLI at full width: the 64-station 19.2 MS/s capture of phase
    5 (36 blocks, 42.3 MB) in a file; ``python -m
@@ -125,8 +139,10 @@ Each path's kernel counts are set to 0 just before it and read just after
 (a CLI run is a process of its own: its counts start at 0 and are read from
 its ``kernel launches`` line).
 The last two lines are the kernels' JSON and the device JSON.
-``--profile DIR`` also writes a torch.profiler table of one warm segment
-of each path to DIR and prints the segment's FIR-bank device time.
+``--profile DIR`` also writes a torch.profiler table and Chrome trace of
+one warm segment of each path (the staged mode-0 segment among them) to
+DIR and prints the segment's device busy time, idle share and FIR-bank
+device time.
 ``--sass DIR`` writes ``cuobjdump -sass`` of the built library's
 ``pll_scan`` and ``frontend_fused`` kernels to DIR. ``--kernels`` stops
 after phase 3 (build and kernel checks): a short first run of a changed
@@ -154,13 +170,8 @@ PS, PI, PTY = "H100 FM ", 0x3A5C, 5
 # copy of one PS segment of the 36-block capture.
 PS_CHANNELS = {0: 30, 1: 31, 2: 29, 3: 31}
 WB_STATIONS, WB_MULT, WB_SLOTS = 64, 8, (3, 32, 62)
-# H100 SXM data-sheet peaks behind every bound: HBM bytes/s and f32 FLOP/s
-# outside the tensor cores (no kernel of the port uses the tensor cores).
-PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
-# pll_scan's serial floor: dependent f32 operations of one sample's step
-# (counted in the SASS of csrc/pll_scan.cu's unrolled body) times the
-# 4-cycle latency of a dependent FADD/FMUL/FFMA/FSEL on sm_90.
-PLL_CHAIN_OPS, F32_LATENCY_CYCLES = 11, 4
+RDS_PREFIXES = ("PI:", "PTY:", "Program Service:", "RadioText:",
+                "RDS summary:")
 
 
 def fail(msg: str) -> None:
@@ -193,11 +204,18 @@ def device_ms(torch, fn, reps: int = 10) -> float:
 
 
 def bound(nbytes: float, flops: float) -> dict:
-    """The least time the card could take: the larger of bytes over the
-    memory rate and f32 operations over the FMA rate, in ms."""
-    t_b, t_f = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
-    return dict(bound_ms=max(t_b, t_f),
-                bound_by="bytes" if t_b >= t_f else "operations")
+    """The least time the card could take, in ms, and what bounds it
+    (``utils.logging.roofline_ms``: the H100 SXM data-sheet peaks)."""
+    from real_time_sdr_tpu_torch.utils.logging import roofline_ms
+    ms, by = roofline_ms(nbytes, flops)
+    return dict(bound_ms=ms, bound_by=by)
+
+
+def leaves(tree):
+    """Tensor leaves of a state or output tree (NamedTuples, None)."""
+    if isinstance(tree, tuple):
+        return [x for t in tree for x in leaves(t)]
+    return [] if tree is None else [tree]
 
 
 def band_power(np, x, fs, f, width=30.0):
@@ -227,13 +245,14 @@ def decode(RdsFramer, bits, nbits, c):
 
 
 def profile_segment(torch, card, path, name, run, run_ms):
-    """torch.profiler table of one warm segment -> DIR/<name>.txt; prints
-    device busy time and idle share."""
+    """torch.profiler table of one warm segment -> DIR/<name>.txt and its
+    Chrome trace -> DIR/<name>.json (``utils.logging.device_trace``);
+    prints device busy time and idle share."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from real_time_sdr_tpu_torch.utils.logging import device_trace
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_trace(path, name) as prof:
         run()
         torch.cuda.synchronize()
     avg = prof.key_averages()
@@ -297,18 +316,25 @@ def main() -> None:
             kernel_body as decimate_body
         from real_time_sdr_tpu_torch.ops.cuda.frontend_fused import \
             frontend_plain
-        from real_time_sdr_tpu_torch.ops.cuda.pll_scan import pll_scan_kernel
-        from real_time_sdr_tpu_torch.ops.fir import PolyFIR, make_bank
+        from real_time_sdr_tpu_torch.ops.cuda.chan_epilogue import \
+            epilogue_cost
+        from real_time_sdr_tpu_torch.ops.cuda.pll_scan import (
+            PLL_CHAIN_OPS, pll_scan_kernel)
+        from real_time_sdr_tpu_torch.ops.fir import (DecimatingFIR, PolyFIR,
+                                                     make_bank)
         from real_time_sdr_tpu_torch.ops.pll import (PllCarry, pll_init,
                                                      pll_newton,
                                                      pll_scan_plain)
+        from real_time_sdr_tpu_torch.ops.sync import PllLoop
         from real_time_sdr_tpu_torch.parallel.channel import (ChannelBank,
                                                               gather)
         from real_time_sdr_tpu_torch.parallel.time_shard import (
             time_sharded_run, time_sharded_run_bank)
         from real_time_sdr_tpu_torch.parallel.wideband import (
             ShardedFusedWideband, ShardedWideband)
-        from real_time_sdr_tpu_torch.utils import synth
+        from real_time_sdr_tpu_torch.utils import benchkit, synth
+        from real_time_sdr_tpu_torch.utils.logging import (
+            F32_LATENCY_CYCLES, launch_cost, speed_of_light_report)
         from real_time_sdr_tpu_torch.utils.state import map_state
     except ImportError as e:
         fail(f"the port is not importable here ({e}); run from the root "
@@ -377,11 +403,12 @@ def main() -> None:
     pi0, pq0 = (torch.from_numpy(rng.uniform(-0.5, 0.5, CH).astype(
         np.float32)).to(dev) for _ in range(2))
 
-    def frontend_bound(xx_, dk_, k_taps_):
-        """Bytes: the u8 rows in, the f32 demod out; operations: K FMAs
-        for I and for Q per output."""
-        return bound(xx_.numel() + 4 * dk_.numel(),
-                     2 * 2 * k_taps_ * dk_.numel())
+    def frontend_bound(fe_, xx_):
+        """The bound of one frontend launch on the tail-prefixed rows xx_,
+        from ``Frontend.cost``: the u8 rows in, the f32 demod out, K FMAs
+        for I and for Q per output, the taps once."""
+        return bound(*launch_cost(fe_.cost(xx_.shape[1] - fe_.tail_len),
+                                  xx_.shape[0]))
 
     def check_frontend(label, seg_u8):
         """The mode-0 frontend kernel on (CH, n) u8 rows behind a zero
@@ -402,7 +429,7 @@ def main() -> None:
             xx, fe.rf_fir.taps, fe.rf_fir.down, pi0, pq0))
         fe_plain_ms = device_ms(torch, lambda: frontend_plain(
             xx, fe.rf_fir, pi0, pq0))
-        fe_bound = frontend_bound(xx, dk, fe.rf_fir.taps.shape[0])
+        fe_bound = frontend_bound(fe, xx)
         print(f"kernel frontend_fused[{label}]: ({CH}, {xx.shape[1]}) u8 "
               f"-> {tuple(dk.shape)}: SNR {fe_snr:.1f} dB vs plain, max abs "
               f"err {fe_err:.3g}, prev err {prev_err:.3g}; kernel "
@@ -442,9 +469,9 @@ def main() -> None:
         t_k = device_ms(torch, lambda: fir_bank.launch(xb, bank.taps, g))
         t_p = device_ms(torch, lambda: fir_bank_plain(xb, bank.w, g))
         body = kernel_body(g)
-        gflop = 2 * rows * yk.shape[-1] * bank.nf * g.T / 1e9   # useful
-        bnd = bound(4 * (xb.numel() + yk.numel() + bank.taps.numel()),
-                    gflop * 1e9)
+        nbytes, flops = launch_cost(bank.cost(n), rows)   # FIRBank.cost
+        gflop = flops / 1e9                               # useful
+        bnd = bound(nbytes, flops)
         # one library call computes a FIR without upsampling: conv1d with
         # the filters as output channels (flipped taps, stride = down)
         t_l = None
@@ -522,10 +549,9 @@ def main() -> None:
             y, pc, ps, r_n, s_ch, n_out_wb))
         t_p = device_ms(torch, lambda: chan_epilogue_plain(
             y, pc, ps, r_n, s_ch, n_out_wb))
-        moved = y.numel() * 4 + uk.numel()
-        # 6 f32 operations per complex sample (the rotation), 2 more to
-        # quantise
-        bnd = bound(moved, 8 * s_ch * n_out_wb)
+        cost = epilogue_cost(tuple(y.shape), s_ch, n_out_wb)
+        moved = cost["bytes"]
+        bnd = bound(moved, cost["flops"])
         print(f"kernel chan_epilogue[{label}]: y {tuple(y.shape)} f32, R "
               f"{r_n}, S {s_ch} -> {tuple(uk.shape)} u8: byte-equal "
               f"{torch.equal(uk, up)}, max abs err {err} LSB; kernel "
@@ -569,8 +595,8 @@ def main() -> None:
                                                        dbank.geometry))
         same = torch.equal(
             fir_bank.launch(xd, dbank.taps, dbank.geometry)[:, 0], yk)
-        bnd = bound(4 * (xd.numel() + yk.numel() + k_taps),
-                    2 * k_taps * yk.numel())
+        site = DecimatingFIR(PolyFIR(h.double().cpu().numpy(), down=down))
+        bnd = bound(*launch_cost(site.cost(n), rows))    # its cost()
         w_l = h.flip(0)[None, None, :].contiguous()
         t_l = device_ms(torch, lambda: torch.nn.functional.conv1d(
             xd[:, None, :], w_l, stride=down))
@@ -623,8 +649,9 @@ def main() -> None:
         and the float carry within 1e-4 (phase modulo 4*pi). Kernel ms:
         median of 10 launches; plain ms: median of ``plain_reps`` calls, or
         the one comparison call when 0. Bound: x read and the carrier
-        written once; about 20 f32 operations per sample. Chain floor: N
-        dependent steps of PLL_CHAIN_OPS operations at the max SM clock."""
+        written once; about 20 f32 operations per sample (``PllLoop.cost``).
+        Chain floor: N dependent steps of PLL_CHAIN_OPS operations at the
+        max SM clock."""
         yk, ck = pll_scan_kernel.launch(xk, c0, p)
         cp0 = PllCarry(*(t[:rows] for t in c0))
         a = torch.cuda.Event(enable_timing=True)
@@ -647,7 +674,8 @@ def main() -> None:
         t_k = device_ms(torch, lambda: pll_scan_kernel.launch(xk, c0, p))
         t_p = (device_ms(torch, lambda: pll_scan_plain(xk[:rows], cp0, p),
                          reps=plain_reps) if plain_reps else a.elapsed_time(b))
-        bnd = bound(8 * xk.numel() + 48 * xk.shape[0], 20 * xk.numel())
+        bnd = bound(*launch_cost(PllLoop(p, 1).cost(xk.shape[1]),
+                                 xk.shape[0]))
         floor_ms = (xk.shape[1] * PLL_CHAIN_OPS * F32_LATENCY_CYCLES
                     / (sm_mhz * 1e3))
         print(f"kernel pll_scan[{label}]: {tuple(xk.shape)}, plain on "
@@ -785,7 +813,7 @@ def main() -> None:
             sm_ = snr_db(frontend_plain(xm, fe_m.rf_fir, pi0, pq0)[0], dm)
             tm = device_ms(torch, lambda: frontend_fused.launch(
                 xm, fe_m.rf_fir.taps, fe_m.rf_fir.down, pi0, pq0))
-            bm = frontend_bound(xm, dm, fe_m.rf_fir.taps.shape[0])
+            bm = frontend_bound(fe_m, xm)
             print(f"kernel frontend_fused[mode {mode}, synthetic carrier]: "
                   f"down {fe_m.rf_fir.down}, {tuple(xm.shape)} -> "
                   f"{tuple(dm.shape)}: SNR {sm_:.1f} dB; kernel {tm:.4f} ms, "
@@ -939,6 +967,133 @@ def main() -> None:
               f"{radio:.4f} s of radio per segment) on {card}")
         return med_, statistics.median(h2d), st
 
+    def staged_path(segs_p, st0):
+        """Host-staged ingest at the flagship shape. The segments' staged
+        cells (``benchkit.stage_cells``: pinned host memory, asynchronous
+        uploads; segment 0's tail is segment 2's end, the state ``st0``
+        holds after one pass) run through ``run_segment_staged`` with the
+        unstaged segment 1 between them, against three unstaged calls from
+        ``st0``: every output leaf and the final state equal, and the
+        kernels launched as often as on the unstaged path. The digests
+        equal. Then warm segments of both forms in turns, H2D included,
+        and the roofline report against phase 3's bounds."""
+        n2 = segs_p[0].shape[1]
+        tl = rx.frontend.tail_len
+        cells = benchkit.stage_cells(rx, np.concatenate(segs_p, axis=1), 1,
+                                     CH, SEGMENTS, n2)[0]
+        st_ref, ref_outs = st0, []
+        for seg in segs_p:
+            st_ref, o = rx.run_segment(st_ref, torch.from_numpy(seg).to(dev))
+            ref_outs.append(o)
+        reset_counts()
+        st_s, outs_s = st0, []
+        for k in range(SEGMENTS):
+            if k == 1:
+                st_s, o = rx.run_segment(st_s,
+                                         torch.from_numpy(segs_p[k]).to(dev))
+            else:
+                st_s, o = rx.run_segment_staged(st_s, cells[k], n2)
+            outs_s.append(o)
+        torch.cuda.synchronize()
+        count_path("mode0_staged", (frontend_fused.name, fir_bank.name,
+                                    fir_decimate.name), ("tiled", "general"))
+        same = (all(torch.equal(a, b) for o, r in zip(outs_s, ref_outs)
+                    for a, b in zip(leaves(o), leaves(r)))
+                and all(torch.equal(a, b)
+                        for a, b in zip(leaves(st_s), leaves(st_ref))))
+        got, want = by_path["mode0_staged"], by_path["mode0"]
+        d_u = benchkit.digest_step(rx)(st0,
+                                       torch.from_numpy(segs_p[0]).to(dev))[1]
+        d_s = benchkit.digest_step_staged(rx, n2)(st0, cells[0])[1]
+        print(f"mode0 staged: {SEGMENTS} chained segments of {CH} ch x "
+              f"{BLOCKS} blk (staged from pinned stage_cells, unstaged, "
+              f"staged) against {SEGMENTS} unstaged calls: every output "
+              f"leaf and the final state torch.equal {same}; digest_step "
+              f"{d_u.item():.6e}, digest_step_staged {d_s.item():.6e}, equal "
+              f"{torch.equal(d_u, d_s)}")
+        if not (same and torch.equal(d_u, d_s)):
+            fail("the staged mode-0 path differs from the unstaged one")
+        for name in (frontend_fused.name, fir_bank.name, fir_decimate.name):
+            if got[name] != want[name]:
+                fail(f"{name} launched {got[name]} times on the staged path, "
+                     f"{want[name]} on the unstaged one")
+        # warm segments of both forms in turns (unstaged, staged, staged,
+        # unstaged, ...), each chain carrying its own state; host clock
+        # around (host staging +) upload + run + synchronize, events around
+        # the upload
+        ring = [torch.empty((CH, rx.frontend.staged_len(n2)),
+                            dtype=torch.uint8, pin_memory=True)
+                for _ in range(2)]
+        chains = {"unstaged": st_ref, "staged": st_s}
+        tail = np.ascontiguousarray(segs_p[-1][:, n2 - tl:])
+        wall = {"unstaged": [], "staged": []}
+        h2d = {"unstaged": [], "staged": []}
+        host_ms = []
+        reps = 8
+        for rep in range(reps):
+            seg = segs_p[rep % SEGMENTS]
+            for path in (("unstaged", "staged") if rep % 2 == 0
+                         else ("staged", "unstaged")):
+                marks = [torch.cuda.Event(enable_timing=True)
+                         for _ in range(3)]
+                t0 = time.perf_counter()
+                if path == "staged":
+                    buf = ring[rep % 2]
+                    rx.frontend.stage_segment(tail, seg, out=buf.numpy())
+                    host_ms.append((time.perf_counter() - t0) * 1e3)
+                    marks[0].record()
+                    x = buf.to(dev, non_blocking=True)
+                    marks[1].record()
+                    chains[path], _ = rx.run_segment_staged(chains[path], x,
+                                                            n2)
+                    tail = seg[:, n2 - tl:]
+                else:
+                    marks[0].record()
+                    x = torch.from_numpy(seg).to(dev)
+                    marks[1].record()
+                    chains[path], _ = rx.run_segment(chains[path], x)
+                marks[2].record()
+                marks[2].synchronize()
+                wall[path].append((time.perf_counter() - t0) * 1e3)
+                h2d[path].append(marks[0].elapsed_time(marks[1]))
+        radio = BLOCKS * cfg.block_size_iq / cfg.rf_fs
+        med_ = {p: statistics.median(v) for p, v in wall.items()}
+        h2d_ = {p: statistics.median(v) for p, v in h2d.items()}
+        print(f"mode0 warm segment at {CH} ch x {BLOCKS} blk, {reps} of each "
+              f"in turns, host clock around (staging +) upload + run + "
+              f"synchronize: staged median {med_['staged']:.3f} ms (min "
+              f"{min(wall['staged']):.3f}, max {max(wall['staged']):.3f}; "
+              f"host staging into pinned memory "
+              f"{statistics.median(host_ms):.3f} ms, H2D pinned "
+              f"{h2d_['staged']:.3f} ms), unstaged median "
+              f"{med_['unstaged']:.3f} ms (min {min(wall['unstaged']):.3f}, "
+              f"max {max(wall['unstaged']):.3f}; H2D pageable "
+              f"{h2d_['unstaged']:.3f} ms); aggregate "
+              f"{CH * radio / (med_['staged'] / 1e3):.1f}x against "
+              f"{CH * radio / (med_['unstaged'] / 1e3):.1f}x real time; on "
+              f"{card}")
+        if args.profile:     # the operand is on the card already
+            profile_segment(torch, card, args.profile, "mode0_staged",
+                            lambda: rx.run_segment_staged(st0, cells[0], n2),
+                            med_["staged"] - statistics.median(host_ms)
+                            - h2d_["staged"])
+        # the roofline from the modules' cost(): each kernel's row at the
+        # flagship shape against phase 3's bound of the same launches
+        sol = speed_of_light_report(rx, file=sys.stdout, channels=CH,
+                                    blocks=BLOCKS,
+                                    sm_clock_hz=sm_mhz * 1e6)
+        for name in (frontend_fused.name, fir_bank.name, fir_decimate.name):
+            row, ph3 = sol["kernels"][name]["floor_ms"], \
+                kernels[name]["bound_ms"]
+            print(f"roofline kernel row {name}: {row:.5f} ms at {CH} x "
+                  f"{BLOCKS}, phase 3's bound {ph3:.5f} ms "
+                  f"({100 * (row / ph3 - 1):+.3f} %)")
+            if abs(row / ph3 - 1) > 0.01:
+                fail(f"the roofline row of {name} is not phase 3's bound")
+        print(f"roofline, mode 0 tier 3 at {CH} x {BLOCKS}: floor "
+              f"{sol['floor_s'] * CH * BLOCKS * 1e3:.4f} ms per segment")
+        del cells, ring, chains
+
     # -- 4. mode-0 path -------------------------------------------------------
     outs, states, seg_ms, left, right = run_path(
         "mode0", rx, segs,
@@ -955,6 +1110,7 @@ def main() -> None:
     if not (sep_l > 30 and sep_r > 30):
         fail("left/right do not carry their tones")
     vs_cpu("mode0", rx, segs, outs, states)
+    staged_path(segs, states[-1])
     med, h2d_med, state = warm("mode0", rx, states[-1], segs, seg_ms, 10)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
           f"GB on {card}")
@@ -1008,6 +1164,13 @@ def main() -> None:
           f" ms; on {card}")
     kernels[pll_scan_kernel.name]["max_abs_err"] = max(
         v["max_abs_err"] for v in pll_cases.values())
+    sol1 = speed_of_light_report(rx1, file=sys.stdout, channels=CH,
+                                 blocks=BLOCKS, sm_clock_hz=sm_mhz * 1e6)
+    print(f"roofline, mode 0 tier 1 at {CH} x {BLOCKS}: floor "
+          f"{sol1['floor_s'] * CH * BLOCKS * 1e3:.4f} ms per segment beside "
+          f"the loops' chain floor "
+          f"{sol1['kernels'][pll_scan_kernel.name]['floor_ms']:.3f} ms "
+          f"(pll_scan measured {seg_pll_ms:.3f} ms)")
     del outs, states, seen
     rx2 = Receiver(0, stereo=True, rds=True, pll_tier=2, device=dev)
     x2 = torch.from_numpy(np.ascontiguousarray(
@@ -1048,7 +1211,7 @@ def main() -> None:
             xx, fe.rf_fir.taps, fe.rf_fir.down, pi0m, pq0m))
         t_p = device_ms(torch, lambda: frontend_plain(xx, fe.rf_fir, pi0m,
                                                       pq0m))
-        bnd = frontend_bound(xx, dk, fe.rf_fir.taps.shape[0])
+        bnd = frontend_bound(fe, xx)
         print(f"kernel frontend_fused[mode {mode}]: down {fe.rf_fir.down}, "
               f"({CH}, {xx.shape[1]}) u8 -> {tuple(dk.shape)}: SNR "
               f"{s_:.1f} dB vs plain, max abs err {err:.3g}; kernel "
@@ -1172,7 +1335,7 @@ def main() -> None:
                             med - statistics.median(h2d))
         return kept
 
-    ch = Channelizer(cfg, wide_fs, offs).to(dev)
+    ch = Channelizer(cfg, wide_fs, offs, device=dev)
     if not (ch.fold_static and ch.fold_R == 16 and ch.fold_J == 323):
         fail(f"unexpected channelizer geometry (static {ch.fold_static}, "
              f"R {ch.fold_R}, J {ch.fold_J})")
@@ -1182,7 +1345,7 @@ def main() -> None:
     # card against the port's own CPU run on the first 2 blocks
     first = torch.from_numpy(raw[:2 * 2 * cfg.block_size_iq * WB_MULT])
     u8_card, _ = ch.call_u8(*u8_to_rails(first.to(dev)), ch.init_state())
-    ch_cpu = Channelizer(cfg, wide_fs, offs)
+    ch_cpu = Channelizer(cfg, wide_fs, offs, device="cpu")
     u8_cpu, _ = ch_cpu.call_u8(*u8_to_rails(first), ch_cpu.init_state())
     diff = (u8_card.cpu().int() - u8_cpu.int()).abs()
     frac = (diff != 0).float().mean().item()
@@ -1268,18 +1431,46 @@ def main() -> None:
         # the two upload paths in the order 0, 0, 1 after the first run's
         # default (auto = 1): per-block time and latency of each run
         runs = {"1": [cli_stats(err)]}
+        rds = [ln for ln in lines if ln.startswith(RDS_PREFIXES)]
         for k, staged in enumerate(("0", "0", "1")):
             err_k, pcm_k = run_cli(["0", "r", "--stats", "--staged", staged],
                                    cap0, os.path.join(tmp, f"s{k}.pcm"))
             if pcm_k != pcm:
                 fail(f"--staged {staged} PCM differs from the first run's")
+            if [ln for ln in err_k.splitlines()
+                    if ln.startswith(RDS_PREFIXES)] != rds:
+                fail(f"--staged {staged} RDS lines differ from the first "
+                     "run's")
             runs.setdefault(staged, []).append(cli_stats(err_k))
         for staged, rs in runs.items():
             print(f"CLI --staged {staged} on {card}: "
                   + "; ".join(f"{r[0]:.2f} ms/block, {r[1]:.1f}x real time, "
                               f"p50 {r[2]:.1f} ms, p99 {r[3]:.1f} ms"
                               for r in rs))
-        print("CLI --staged 0 and 1: PCM identical")
+        print(f"CLI --staged 0 and 1 (1 serves run_segment_staged): PCM "
+              f"byte-identical, {len(rds)} RDS lines equal")
+        # a --checkpoint pair over the two halves of the capture (staged):
+        # the resumed run's host tail comes from the saved state, so the
+        # joined PCM is the uninterrupted run's
+        half = os.path.getsize(cap0) // 2
+        raw0 = np.fromfile(cap0, np.uint8)
+        ck = os.path.join(tmp, "ck")
+        joined = b""
+        for k, part in enumerate((raw0[:half], raw0[half:])):
+            part_path = os.path.join(tmp, f"part{k}.raw")
+            part.tofile(part_path)
+            err_k, pcm_k = run_cli(["0", "r", "--staged", "1",
+                                    "--checkpoint", ck], part_path,
+                                   os.path.join(tmp, f"ck{k}.pcm"))
+            joined += pcm_k
+        if f"resumed state from {ck}" not in err_k.splitlines():
+            fail("the CLI did not resume its checkpoint")
+        if joined != pcm:
+            fail("the staged --checkpoint pair's joined PCM differs from "
+                 "the uninterrupted run's")
+        print(f"CLI --staged 1 --checkpoint, {CLI_BLOCKS // 2} blocks then "
+              f"the rest: joined PCM byte-identical to the uninterrupted "
+              f"run's")
         cfg2 = Receiver(2, device=dev).cfg
         cap2 = os.path.join(tmp, "mode2.raw")
         synth.station_iq(cfg2, 40, ps_name=PS, pi=PI, pty=PTY)[0].tofile(cap2)

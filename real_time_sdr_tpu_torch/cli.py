@@ -17,10 +17,11 @@ It runs on the CUDA card unless ``--cpu`` is given; without a card and
 without ``--cpu`` it exits with status 2 instead of running on the CPU.
 
 The host loop reads ``--segment`` blocks per group through the native
-ring-buffered reader, uploads the group (``--staged``: through a ring of
-pinned host buffers with an asynchronous copy), queues the receiver's
-kernels (launches are asynchronous), and starts the PCM and RDS copies
-back into pinned memory. Up to ``--pipeline`` groups stay in flight; a
+ring-buffered reader, uploads the group (``--staged``: as the staged
+operand ``[tail | group]`` written into a ring of pinned host buffers, one
+asynchronous copy, served by ``Receiver.run_segment_staged``), queues the
+receiver's kernels (launches are asynchronous), and starts the PCM and RDS
+copies back into pinned memory. Up to ``--pipeline`` groups stay in flight; a
 drain waits once per group on a CUDA event, then writes the PCM and feeds
 the RDS framer. The wideband loop is the same with one (S, ...) PCM tensor
 and one fetch per segment; ``--retune SEG:STATION:HZ`` re-points a station
@@ -60,10 +61,12 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--input", default="-", help="raw uint8 IQ file, -=stdin")
     ap.add_argument("--output", default="-", help="PCM out, - = stdout")
     ap.add_argument("--staged", choices=("auto", "0", "1"), default="auto",
-                    help="host-staged ingest: the read loop copies each "
-                         "group into a ring of pinned host buffers and "
-                         "uploads it asynchronously (auto = 1); 0 = a plain "
-                         "pageable copy to the device")
+                    help="host-staged ingest: the read loop writes [tail | "
+                         "group] into a ring of pinned host buffers, uploads "
+                         "it asynchronously and the receiver runs it with "
+                         "no device-side concatenation (auto = 1; the "
+                         "wideband mode pins the group's upload); 0 = a "
+                         "plain pageable copy and the unstaged receiver")
     ap.add_argument("--pll-tier", type=int, default=1, choices=(1, 2, 3),
                     help="1=exact sequential PLL, 2=block-parallel Newton, "
                          "3=feedforward sync (fastest; approximates the "
@@ -180,29 +183,50 @@ def _emit(kind, val) -> None:
 class _Uploader:
     """Host -> device copies of input groups.
 
-    staged: each group is copied into the next slot of a ring of host
-    buffers (page-locked when the device is a card) and uploaded with
-    ``non_blocking=True``. A slot is reused ``slots`` groups later; the
-    loop drains every group more than ``--pipeline`` groups old (waiting
-    on its event, which follows its upload), so with ``slots`` >=
-    ``--pipeline`` + 2 no slot is overwritten while its copy is in flight.
-    Unstaged: a plain pageable ``.to(device)``."""
+    staged: each group goes into the next slot of a ring of host buffers
+    (page-locked when the device is a card) and is uploaded with
+    ``non_blocking=True``. With a ``frontend`` (the single-station path)
+    the slot receives the staged operand ``[tail | group]``
+    (``Frontend.stage_segment``) for ``Receiver.run_segment_staged``, and
+    ``tail`` moves on to the group's last ``tail_len`` bytes; without one
+    (the wideband path) it receives the group as it is. A slot is reused
+    ``slots`` groups later; the loop drains every group more than
+    ``--pipeline`` groups old (waiting on its event, which follows its
+    upload), so with ``slots`` >= ``--pipeline`` + 2 no slot is overwritten
+    while its copy is in flight. Unstaged: a plain pageable
+    ``.to(device)`` of the group."""
 
-    def __init__(self, torch, device, nbytes: int, slots: int, staged: bool):
+    def __init__(self, torch, device, nbytes: int, slots: int, staged: bool,
+                 frontend=None):
         self.torch = torch
         self.device = device
-        self.ring = ([torch.empty(nbytes, dtype=torch.uint8,
+        self.frontend = frontend
+        self.tail = (None if frontend is None else
+                     np.full(frontend.tail_len, 128, dtype=np.uint8))
+        size = nbytes + (0 if frontend is None else frontend.tail_len)
+        self.ring = ([torch.empty(size, dtype=torch.uint8,
                                   pin_memory=device.type == "cuda")
                       for _ in range(slots)] if staged else None)
         self.k = 0
+
+    @property
+    def staged(self) -> bool:
+        """True when the uploads are ``[tail | group]`` staged operands."""
+        return self.ring is not None and self.frontend is not None
 
     def __call__(self, seg: np.ndarray):
         torch = self.torch
         if self.ring is None:
             return torch.from_numpy(seg).to(self.device)
-        buf = self.ring[self.k % len(self.ring)][:seg.shape[0]]
+        slot = self.ring[self.k % len(self.ring)]
         self.k += 1
-        buf.copy_(torch.from_numpy(seg))
+        if self.frontend is None:
+            buf = slot[:seg.shape[0]]
+            buf.copy_(torch.from_numpy(seg))
+        else:
+            buf = slot[:self.frontend.staged_len(seg.shape[0])]
+            self.frontend.stage_segment(self.tail, seg, out=buf.numpy())
+            self.tail = seg[seg.shape[0] - self.tail.shape[0]:].copy()
         return buf.to(self.device, non_blocking=True)
 
 
@@ -596,11 +620,15 @@ def _serve(args, torch, device, rx) -> int:
         return (stereo_pcm(out.left, out.right) if stereo
                 else mono_pcm(out.mono))[0]
 
+    staged = args.staged != "0"
     if args.warmup:
         t0 = time.perf_counter()
-        silent = torch.full((1, seg_n * block_bytes), 128, dtype=torch.uint8,
-                            device=device)
-        _, wout = rx.run_segment(rx.init_state(1), silent)   # discarded
+        n2 = seg_n * block_bytes
+        silent = torch.full((1, rx.frontend.staged_len(n2) if staged else n2),
+                            128, dtype=torch.uint8, device=device)
+        _, wout = (rx.run_segment_staged(rx.init_state(1), silent, n2)
+                   if staged
+                   else rx.run_segment(rx.init_state(1), silent))  # discarded
         pcm_of(wout).cpu()
         print(f"warmed up in {time.perf_counter() - t0:.1f} s",
               file=sys.stderr)
@@ -650,8 +678,12 @@ def _serve(args, torch, device, rx) -> int:
         arr = bufs[0] if len(bufs) == 1 else np.concatenate(bufs)
         return arr, t_in, len(bufs)
 
+    # staged: the host keeps the tail and writes [tail | group] into the
+    # pinned ring, so the device runs no concatenation; a resumed run's
+    # tail is the checkpoint's
     upload = _Uploader(torch, device, seg_n * block_bytes,
-                       args.pipeline + 2, args.staged != "0")
+                       args.pipeline + 2, staged, frontend=rx.frontend)
+    upload.tail = state.frontend.iq_tail[0].cpu().numpy().copy()
     monitor_every = max(1, args.monitor_every)
     n_blocks = 0
     t_total = 0.0
@@ -688,7 +720,9 @@ def _serve(args, torch, device, rx) -> int:
         seg, t_in, g = nxt
         # an EOF partial group runs at its exact shape: the real blocks'
         # outputs do not depend on padding, and nothing is recompiled
-        state, out = rx.run_segment(state, upload(seg)[None])
+        x = upload(seg)[None]
+        state, out = (rx.run_segment_staged(state, x, seg.shape[0])
+                      if upload.staged else rx.run_segment(state, x))
         pcm = pcm_of(out)
         nbits = bits = clean = None
         if framer is not None:

@@ -46,6 +46,7 @@ import torch
 from torch import nn
 
 from real_time_sdr_tpu_torch.config import ReceiverConfig
+from real_time_sdr_tpu_torch.device import resolve_device
 from real_time_sdr_tpu_torch.ops import filters
 from real_time_sdr_tpu_torch.ops.cuda.chan_epilogue import (chan_epilogue,
                                                             quantize_u8,
@@ -102,16 +103,20 @@ class Channelizer(nn.Module):
 
     wide_fs must be an integer multiple of the station rate cfg.rf_fs;
     offsets_hz are integer station offsets from the capture center.
-    Tables and weights are buffers, so ``.to(device)`` moves them.
+    Tables and weights are buffers built on ``device``: the card unless the
+    caller names another (``None`` is ``"cuda"`` and raises
+    ``RuntimeError`` without one, as ``Receiver``).
 
-        ch = Channelizer(cfg, 8 * cfg.rf_fs, offsets).to("cuda")
+        ch = Channelizer(cfg, 8 * cfg.rf_fs, offsets)
         u8, cstate = ch.call_u8(i_wide, q_wide, ch.init_state())
     """
 
     def __init__(self, cfg: ReceiverConfig, wide_fs: int,
                  offsets_hz: list[int], taps_factor: int = 2,
-                 fold: bool = True):
+                 fold: bool = True,
+                 device: str | torch.device | None = None):
         super().__init__()
+        dev = resolve_device(device)
         if wide_fs % cfg.rf_fs:
             raise ValueError(f"wide_fs {wide_fs} is not a multiple of the "
                              f"station rate {cfg.rf_fs}")
@@ -144,6 +149,7 @@ class Channelizer(nn.Module):
         self.fold_static = False
         if self.fold:
             self._init_fold(taps)
+        self.to(dev)
 
     def _init_fold(self, k_taps: int) -> None:
         """Fold weights (2J, R*2S), col = r*2S + u (u < S the real rail),

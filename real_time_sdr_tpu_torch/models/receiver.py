@@ -122,6 +122,23 @@ class Receiver(nn.Module):
         demod, f_state = self.frontend(iq_u8, state.frontend)
         return self._post_frontend(demod, f_state, state)
 
+    @torch.no_grad()
+    def run_segment_staged(self, state: ReceiverState, xp_u8: torch.Tensor,
+                           n2: int):
+        """Segment mode over a HOST-STAGED operand: ``xp_u8`` (C,
+        frontend.staged_len(n2)) uint8 on the receiver's device is
+        ``[tail | segment]`` as ``frontend.stage_segment`` writes it, ``n2``
+        the segment's byte length. Identical to ``run_segment`` on the
+        embedded segment, without the device-side concatenation of tail and
+        segment; the returned state is ``run_segment``'s, so staged and
+        unstaged calls interleave freely."""
+        blk = 2 * self.cfg.block_size_iq
+        if n2 <= 0 or n2 % blk:
+            raise ValueError(f"segment length {n2} is not a whole number of "
+                             f"{blk}-byte blocks")
+        demod, f_state = self.frontend.call_staged(xp_u8, n2, state.frontend)
+        return self._post_frontend(demod, f_state, state)
+
     def _post_frontend(self, demod: torch.Tensor, f_state,
                        state: ReceiverState):
         shared = band_pre = None

@@ -54,12 +54,11 @@ def make_wideband_frontend(cfg: ReceiverConfig, wide_fs: int,
     (every real raster is), else the two-stage Channelizer + uint8
     receiver path, on ``device``: the card unless the caller names another
     (``None`` is ``"cuda"`` and raises without one, as ``Receiver``)."""
-    dev = resolve_device(device)
     if FusedWidebandFrontend.eligible(cfg, wide_fs, offsets_hz):
         return FusedWidebandFrontend(cfg, wide_fs, offsets_hz,
-                                     taps_factor=taps_factor).to(dev)
-    return Channelizer(cfg, wide_fs, offsets_hz,
-                       taps_factor=taps_factor).to(dev)
+                                     taps_factor=taps_factor, device=device)
+    return Channelizer(cfg, wide_fs, offsets_hz, taps_factor=taps_factor,
+                       device=device)
 
 
 class FusedWidebandState(NamedTuple):
@@ -87,7 +86,9 @@ class FusedWidebandFrontend(nn.Module):
     Needs a periodic station grid whose IF-rate tone lcm is at most
     ``WB_LCM_MAX`` (``eligible``); other grids take Channelizer + the u8
     receiver path. The weights (2J, R*2S) and the rotation tables (lo, S)
-    are buffers; ``retune`` rewrites one station's columns in place.
+    are buffers built on ``device``: the card unless the caller names
+    another (``None`` is ``"cuda"`` and raises ``RuntimeError`` without
+    one). ``retune`` rewrites one station's columns in place.
     """
 
     @staticmethod
@@ -117,8 +118,10 @@ class FusedWidebandFrontend(nn.Module):
                               offsets_hz) <= cap
 
     def __init__(self, cfg: ReceiverConfig, wide_fs: int,
-                 offsets_hz: list[int], taps_factor: int = 2):
+                 offsets_hz: list[int], taps_factor: int = 2,
+                 device: str | torch.device | None = None):
         super().__init__()
+        dev = resolve_device(device)
         if wide_fs % cfg.rf_fs:
             raise ValueError(f"wide_fs {wide_fs} is not a multiple of the "
                              f"station rate {cfg.rf_fs}")
@@ -151,6 +154,7 @@ class FusedWidebandFrontend(nn.Module):
                 "Channelizer + the uint8 receiver path for this grid")
         self.lo = lo
         self._init_weights(FOLD_R * lo // math.gcd(FOLD_R, lo))
+        self.to(dev)
 
     def _station_cols(self, f: int):
         """One station's fold columns and rotation rows, host float64:
@@ -258,6 +262,21 @@ class FusedWidebandFrontend(nn.Module):
                              f"wideband samples, got {n}")
         n_if = n // self.dt
         return n_if, self.r_n * self.dt, -(-n_if // self.r_n)
+
+    def cost(self, n: int) -> dict:
+        """Work on an n-sample wideband segment (``ops/fir.py`` has the
+        dict's keys): the two f32 rails and their tails read once, the
+        weights once per launch, the demod written and transposed once,
+        and the fold SGEMM (a library call) as the port launches it:
+        2 x M x N x K for (c_frames, 2J) @ (2J, R*2S)."""
+        n_if, _, c_frames = self._plan(n)
+        s_ch = len(self.offsets)
+        k_dim, n_dim = 2 * self.j_w, self.r_n * 2 * s_ch
+        w_bytes = 4 * k_dim * n_dim
+        return {"kind": "fused_wb_f32", "flops": 2 * c_frames * k_dim * n_dim,
+                "bytes": 2 * 4 * (n + self.tail_len) + w_bytes
+                + 4 * s_ch * n_if * 2,
+                "w_bytes": w_bytes, "dims": (c_frames, k_dim, n_dim)}
 
     def core(self, w_cols, pc_t, ps_t, i_tail, q_tail, prev_i, prev_q,
              pos, i_wide: torch.Tensor, q_wide: torch.Tensor):

@@ -25,7 +25,17 @@ from real_time_sdr_tpu_torch.device import kernel_route
 from real_time_sdr_tpu_torch.ops.cuda._build import check, library, stream_ptr
 
 __all__ = ["chan_epilogue", "chan_epilogue_plain", "ChanEpilogueKernel",
-           "rotate_stations"]
+           "rotate_stations", "epilogue_cost"]
+
+
+def epilogue_cost(y_shape: tuple[int, int], s_ch: int, n_out: int) -> dict:
+    """Work of one epilogue launch (``ops/fir.py`` has the dict's keys): the
+    f32 matmul result ``y_shape`` read once, the (S, 2*n_out) u8 streams
+    written once, 6 f32 operations per complex sample to rotate and 2 to
+    quantise."""
+    return {"kind": "chan_epilogue", "flops": 8 * s_ch * n_out,
+            "bytes": 4 * y_shape[0] * y_shape[1] + 2 * s_ch * n_out,
+            "w_bytes": 0, "dims": (y_shape[0], y_shape[1], s_ch)}
 
 
 def quantize_u8(z: torch.Tensor) -> torch.Tensor:

@@ -34,7 +34,12 @@ from real_time_sdr_tpu_torch.ops.cuda._build import check, library, stream_ptr
 from real_time_sdr_tpu_torch.ops.pll import (FOUR_PI, PllCarry, PllParams,
                                              check_args, pll_scan_plain)
 
-__all__ = ["pll_scan_kernel", "PllScanKernel"]
+__all__ = ["pll_scan_kernel", "PllScanKernel", "PLL_CHAIN_OPS"]
+
+# dependent f32 operations of one sample's step on the chain thread,
+# counted in the SASS of csrc/pll_scan.cu's unrolled body: times the latency
+# of a dependent f32 operation, the loop's floor per sample
+PLL_CHAIN_OPS = 11
 
 
 class PllScanKernel:

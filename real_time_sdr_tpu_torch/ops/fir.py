@@ -24,7 +24,16 @@ single-nonzero-tap filter (the all-pass delay) lowers to a scaled slice.
   kernel (``ops/cuda/fir_kernels.py``), with the bank's call contract.
 - ``DualPhaseFIR``: the frontend's decimating I/Q LPF applied straight to
   the interleaved u8 stream, the plain half of the fused frontend.
+
+Each has ``cost(n)``: the work of the FUNCTION on an n-sample block of one
+row, whatever computes it, as a dict ``kind``, ``flops``, ``bytes``,
+``w_bytes``, ``dims`` (``utils/logging.stage_costs`` walks them). FLOPs
+are 2 x outputs x nonzero taps each output multiplies, summed over a
+bank's members; bytes are the f32 input plus its tail read once (one read
+for a whole bank), each output written once, and the taps once per launch
+(``w_bytes``, the share of ``bytes`` a launch over many rows pays once).
 """
+
 
 from __future__ import annotations
 
@@ -50,6 +59,28 @@ def state_len(num_taps: int, up: int = 1) -> int:
 
 def _tail_of(xx: torch.Tensor, n: int) -> torch.Tensor:
     return xx[..., xx.shape[-1] - n:].contiguous() if n else xx[..., :0]
+
+
+def _nz_phase(h: np.ndarray, up: int) -> np.ndarray:
+    """(up,) nonzero taps per polyphase phase: output phase p multiplies
+    h[p], h[p + up], ..."""
+    return np.array([np.count_nonzero(h[p::up]) for p in range(up)],
+                    dtype=np.int64)
+
+
+def _fir_cost(kind: str, nz_phase: np.ndarray, up: int, down: int, n: int,
+              tail_len: int, n_filters: int, num_taps: int) -> dict:
+    """The cost dict of ``n_filters`` same-geometry FIRs sharing one f32
+    input (see the module docstring); ``nz_phase`` is summed over them."""
+    n_out = n * up // down
+    # output r multiplies phase (r*down) % up
+    per_phase = np.bincount((np.arange(n_out, dtype=np.int64) * down) % up,
+                            minlength=up)
+    w_bytes = 4 * n_filters * num_taps
+    return {"kind": kind, "flops": 2 * int(per_phase @ nz_phase),
+            "bytes": 4 * (n + tail_len) + 4 * n_filters * n_out + w_bytes,
+            "w_bytes": w_bytes,
+            "dims": (n_out, -(-num_taps // up), n_filters)}
 
 
 class PolyFIR:
@@ -95,6 +126,15 @@ class PolyFIR:
     @property
     def tail_len(self) -> int:
         return self.T - 1
+
+    def cost(self, n: int) -> dict:
+        """Work on an n-sample block of one row (module docstring); the
+        all-pass delay is a slice: n read, n written, no operations."""
+        if self.single_tap:
+            return {"kind": "delay", "flops": 0, "bytes": 8 * n,
+                    "w_bytes": 0, "dims": (0, 0, 0)}
+        return _fir_cost("fir_f32", _nz_phase(self._h, self.up), self.up,
+                         self.down, n, self.tail_len, 1, self.num_taps)
 
     def weights(self) -> np.ndarray:
         """(J, R) float32 polyphase weight matrix of the framed matmul."""
@@ -151,6 +191,7 @@ class FIRBank(nn.Module):
         self.geometry = firs[0].geometry
         self.nf = len(firs)
         self._tail_len = firs[0].tail_len
+        self._nz_phase = sum(_nz_phase(f.h, f.up) for f in firs)
         self.register_buffer("taps", torch.as_tensor(
             np.stack([f.h for f in firs]).astype(np.float32)))
         self.register_buffer("w", torch.as_tensor(
@@ -159,6 +200,14 @@ class FIRBank(nn.Module):
     @property
     def tail_len(self) -> int:
         return self._tail_len
+
+    def cost(self, n: int) -> dict:
+        """Work of the whole bank on an n-sample block of one row: its
+        members share one read of the input."""
+        g = self.geometry
+        kind = "fir_f32" if self.nf == 1 else f"fir_f32_x{self.nf}shared"
+        return _fir_cost(kind, self._nz_phase, g.up, g.down, n,
+                         self._tail_len, self.nf, g.num_taps)
 
     def forward(self, x: torch.Tensor, tail: torch.Tensor):
         xx = torch.cat([tail, x.to(tail.dtype)], dim=-1)
@@ -190,12 +239,18 @@ class DecimatingFIR(nn.Module):
                              f"more than one tap, got up={fir.up}")
         self.down = fir.down
         self.num_taps = fir.num_taps
+        self._nz_phase = _nz_phase(fir.h, 1)
         self.register_buffer("taps", torch.as_tensor(
             fir.h.astype(np.float32)))
 
     @property
     def tail_len(self) -> int:
         return self.num_taps - 1
+
+    def cost(self, n: int) -> dict:
+        """Work on an n-sample block of one row (one rail)."""
+        return _fir_cost("fir_decimate_f32", self._nz_phase, 1, self.down,
+                         n, self.tail_len, 1, self.num_taps)
 
     def forward(self, x: torch.Tensor, tail: torch.Tensor):
         xx = torch.cat([tail, x.to(tail.dtype)], dim=-1)
@@ -236,6 +291,7 @@ class DualPhaseFIR(nn.Module):
                 W[j + 1, R + r] = h[k]
         self.stride = R * dprime
         self.s_over = -(-J // self.stride)
+        self._nz = int(np.count_nonzero(h))
         self.register_buffer("w", torch.as_tensor(
             W.astype(np.float32) / np.float32(128.0)))
         self.register_buffer("taps", torch.as_tensor(
@@ -244,6 +300,20 @@ class DualPhaseFIR(nn.Module):
     @property
     def tail_len(self) -> int:
         return 2 * self.num_taps - 2
+
+    def n_out(self, n2: int) -> int:
+        """Outputs per rail of an n2-byte interleaved segment."""
+        return (n2 // 2) // self.down
+
+    def cost(self, n2: int) -> dict:
+        """Work on an n2-byte interleaved u8 block of one row: the u8 bytes
+        and their tail read once, the I and Q rails written once, K
+        multiply-adds per output and rail."""
+        n_out = self.n_out(n2)
+        w_bytes = 4 * self.num_taps
+        return {"kind": "dualphase_u8", "flops": 2 * 2 * self._nz * n_out,
+                "bytes": self.tail_len + n2 + 2 * 4 * n_out + w_bytes,
+                "w_bytes": w_bytes, "dims": (n_out, self.num_taps, 2)}
 
     def forward(self, xx_u8: torch.Tensor):
         """xx_u8: (..., 2K-2 + 2N) tail-prefixed u8 -> (I, Q) (..., N//down)

@@ -28,7 +28,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from real_time_sdr_tpu_torch.ops.cuda.pll_scan import pll_scan_kernel
+from real_time_sdr_tpu_torch.ops.cuda.pll_scan import (PLL_CHAIN_OPS,
+                                                       pll_scan_kernel)
 from real_time_sdr_tpu_torch.ops.fir import PolyFIR, make_bank
 from real_time_sdr_tpu_torch.ops.pll import (FOUR_PI, PllCarry, PllParams,
                                              pll_init, pll_newton)
@@ -199,6 +200,20 @@ class PllLoop(nn.Module):
 
     def init(self, batch: int) -> PllCarry:
         return pll_init(batch, self._anchor.device)
+
+    def cost(self, n: int) -> dict:
+        """Work of the tier-1 loop on an n-sample block of one row: the
+        pilot read and the carrier written once, the carry (six 4-byte
+        leaves) read and written once, about 20 f32 operations per sample.
+        The loop is bound by latency, not by bytes or operations:
+        ``chain_ops`` dependent operations run in sequence per row. Tier
+        2's Newton solve is plain elementwise torch and has no cost row."""
+        if self.tier != 1:
+            raise ValueError("only the tier-1 loop has a cost row; tier 2 is "
+                             "elementwise torch work")
+        return {"kind": "pll_scan", "flops": 20 * n, "bytes": 8 * n + 48,
+                "w_bytes": 0, "dims": (n, PLL_CHAIN_OPS, 1),
+                "chain_ops": PLL_CHAIN_OPS * n}
 
     def forward(self, x: torch.Tensor, carry: PllCarry):
         fn = pll_scan_kernel if self.tier == 1 else pll_newton

@@ -1,0 +1,302 @@
+"""Observability: gnuplot-style vector dumps, per-block timing against the
+real-time budget, the per-stage speed-of-light (roofline) report and a
+device trace.
+
+Port of ``real_time_sdr_tpu/utils/logging.py``. ``log_vector`` and
+``BlockTimer`` write and print what the JAX package's do. The roofline
+counts the FUNCTION's work, from the ``cost()`` of each module (``ops/fir``,
+``models/frontend``, ``ops/sync``), against the data-sheet peaks of an
+NVIDIA H100 SXM (80 GB HBM3, 700 W): the same count the kernel checks of
+``chip_smoke.py`` hold each kernel's time against.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from real_time_sdr_tpu_torch.ops.fir import DecimatingFIR
+from real_time_sdr_tpu_torch.ops.sync import FeedforwardSync
+
+__all__ = ["log_vector", "BlockTimer", "H100_HBM_BPS", "H100_F32_FLOPS",
+           "F32_LATENCY_CYCLES", "roofline_ms", "launch_cost", "stage_costs",
+           "speed_of_light_report", "device_trace"]
+
+# NVIDIA H100 SXM data sheet (80 GB HBM3, 700 W): HBM bytes/s, and f32
+# FLOP/s outside the tensor cores (no kernel of the port uses them)
+H100_HBM_BPS = 3.35e12
+H100_F32_FLOPS = 67e12
+# cycles of a dependent FADD/FMUL/FFMA/FSEL on sm_90: a serial chain of f32
+# operations runs no faster than this many cycles per operation
+F32_LATENCY_CYCLES = 4
+
+
+def log_vector(name: str, data, out_dir: str = "data",
+               index=None) -> str:
+    """Dump (index, value) pairs to <out_dir>/<name>.dat, one per line
+    after a ``# name`` header (the gnuplot layout)."""
+    os.makedirs(out_dir, exist_ok=True)
+    data = np.asarray(data).ravel()
+    if index is None:
+        index = np.arange(len(data))
+    path = os.path.join(out_dir, f"{name}.dat")
+    with open(path, "w") as f:
+        f.write(f"# {name}\n")
+        for i, v in zip(np.asarray(index).ravel(), data):
+            f.write(f"{i}\t{v:.8g}\n")
+    return path
+
+
+class BlockTimer:
+    """Tracks per-block wall clock against the real-time budget."""
+
+    def __init__(self, budget_s: float):
+        self.budget = budget_s
+        self.times: list[float] = []
+
+    @contextlib.contextmanager
+    def block(self):
+        t0 = time.perf_counter()
+        yield
+        self.times.append(time.perf_counter() - t0)
+
+    @property
+    def realtime_factor(self) -> float:
+        tot = sum(self.times)
+        return (self.budget * len(self.times) / tot) if tot else float("inf")
+
+    def summary(self) -> str:
+        if not self.times:
+            return "no blocks timed"
+        arr = np.array(self.times)
+        return (f"{len(arr)} blocks: mean {arr.mean()*1e3:.2f} ms, "
+                f"p99 {np.quantile(arr, 0.99)*1e3:.2f} ms, budget "
+                f"{self.budget*1e3:.2f} ms, {self.realtime_factor:.1f}x "
+                f"real time")
+
+
+def roofline_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time the card could take for the work, in ms, and what
+    bounds it: the larger of the bytes over the HBM rate ("bytes") and the
+    f32 operations over the f32 peak ("operations")."""
+    t_b = nbytes / H100_HBM_BPS * 1e3
+    t_f = flops / H100_F32_FLOPS * 1e3
+    return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
+def launch_cost(cost: dict, rows: int) -> tuple[float, float]:
+    """(bytes, flops) of one launch over ``rows`` rows of a module's
+    per-row ``cost()``: the weights are read once per launch."""
+    w = cost.get("w_bytes", 0)
+    return rows * (cost["bytes"] - w) + w, rows * cost["flops"]
+
+
+def _ew(n_streams: float, n: int, const_streams: float = 0.0,
+        channels: int = 1) -> dict:
+    """Elementwise-chain cost: ``n_streams`` f32 arrays of length ``n``
+    read or written once, plus ``const_streams`` whose source is a
+    per-call constant shared by every channel (the ramp tables; amortized
+    over the channel batch). The operations are negligible next to the
+    bytes."""
+    return {"kind": "elementwise", "flops": 0,
+            "bytes": int(4 * n * (n_streams + const_streams / channels)),
+            "w_bytes": 0, "dims": (0, 0, 0)}
+
+
+def _kernel_of(site) -> str:
+    """The kernel behind a FIR site: the decimating FIR or the FIR bank."""
+    return "fir_decimate" if isinstance(site, DecimatingFIR) else "fir_bank"
+
+
+def stage_costs(rx, channels: int = 1,
+                blocks: int = 1) -> list[tuple[str, dict]]:
+    """Walk a Receiver's stages and collect per-block, per-channel cost
+    dicts, each with a ``kernel`` key naming the port's kernel that
+    computes it (None for elementwise torch work and the delay slices).
+    A stage that runs a whole segment of ``blocks`` blocks per launch
+    reads its carried tail once per segment: its row is the segment's
+    count over ``blocks`` (``w_bytes`` stays the launch's, for
+    ``speed_of_light_report`` to amortize), so rows scaled to the serving
+    shape are the launches' counts.
+
+    The walk and the row names are the JAX package's; the port adds one
+    row per tier-1 carrier loop (``audio.sync.pll_scan``,
+    ``rds.sync.pll_scan``), which the JAX package counts only in its
+    ``pll+mix`` traffic. A bank's rows count one read of its shared input
+    (``FIRBank.cost``). The stereo audio resampler is one launch over both
+    rails (``fir_decimate`` at modes 0-1, a FIR bank at modes 2-3): its
+    two rows ``audio.mono_fir`` and ``audio.stereo_fir`` count one rail
+    each and the taps once. The elementwise rows keep the JAX package's
+    stream tallies: each materialized input read once and the output
+    written once, the least a fused implementation moves."""
+    cfg = rx.cfg
+    n_if = cfg.if_block
+    out = []
+
+    def add(name, cost, kernel):
+        out.append((name, dict(cost, kernel=kernel)))
+
+    def seg_cost(site, n):
+        """Per-block share of ``site.cost`` over a segment of n-sample
+        blocks."""
+        c = site.cost(n * blocks)
+        w = c["w_bytes"]
+        share = dict(c, flops=c["flops"] / blocks,
+                     bytes=(c["bytes"] - w) / blocks + w)
+        if "chain_ops" in c:
+            share["chain_ops"] = c["chain_ops"] // blocks
+        return share
+
+    def add_sync(prefix, sync):
+        if isinstance(sync, FeedforwardSync):
+            add(f"{prefix}.cfir(2 shared)", seg_cost(sync.bank, n_if),
+                "fir_bank")
+        elif sync.tier == 1:
+            add(f"{prefix}.pll_scan", seg_cost(sync, n_if), "pll_scan")
+
+    add("frontend.rf(u8)", seg_cost(rx.frontend, 2 * cfg.block_size_iq),
+        "frontend_fused")
+    audio, r = rx.audio, rx.rds_path
+    if not rx.stereo:
+        add("audio.audio_fir", seg_cost(audio.audio_bank, n_if),
+            _kernel_of(audio.audio_bank))
+    else:
+        if rx.if_bank is not None:
+            add("if.bank(3 shared BPFs)", seg_cost(rx.if_bank, n_if),
+                "fir_bank")
+        else:
+            add("audio.pb_bank(2 shared)", seg_cost(audio.pb_bank, n_if),
+                "fir_bank")
+        add("audio.delay_fir", audio.delay_fir.cost(n_if), None)
+        rail = seg_cost(audio.resamp_bank, n_if)
+        kernel = _kernel_of(audio.resamp_bank)
+        add("audio.mono_fir", rail, kernel)
+        add("audio.stereo_fir", dict(rail, bytes=rail["bytes"]
+                                     - rail["w_bytes"], w_bytes=0), kernel)
+        add_sync("audio.sync", audio.sync)
+    if r is not None:
+        if rx.if_bank is None:
+            add("rds.band_fir", seg_cost(r.band_bank, n_if), "fir_bank")
+        add("rds.pilot_fir", seg_cost(r.pilot_bank, n_if), "fir_bank")
+        add("rds.delay_fir", r.delay_fir.cost(n_if), None)
+        # the narrowband tail runs one batch row per (channel, block)
+        add("rds.baseband_fir", r.baseband_bank.cost(n_if), "fir_bank")
+        add("rds.rrc_fir", r.rrc_bank.cost(cfg.rds_block), "fir_bank")
+        add_sync("rds.sync", r.sync)
+
+    # -- elementwise chains (bytes only, see _ew) ---------------------------
+    n_audio = n_if * cfg.audio_up // cfg.audio_down
+    if rx.stereo and isinstance(audio.sync, FeedforwardSync):
+        # sync epilogue + DSB mix: c_re/c_im, the stereo band and the delay
+        # slice read, the mixed stream written; the ramp tables are
+        # constants shared by the channel batch
+        add("audio.sync.epi+mix", _ew(5, n_if, 2, channels), None)
+        # L/R matrixing at the audio rate
+        add("audio.matrix", _ew(4, n_audio), None)
+    elif rx.stereo:
+        add("audio.pll+mix", _ew(5, n_if), None)
+    if r is not None and isinstance(r.sync, FeedforwardSync):
+        # c_re/c_im + delay reads, the wrapped delta through the prefix sum
+        # (write + read), the mixed write; the angle table is a constant
+        add("rds.sync.epi+unwrap+mix", _ew(6, n_if, 1, channels), None)
+        # decode tail at the RDS rate: RRC output re-read by the CDR comb
+        # and the slicer, per-block reductions, bit emission
+        add("rds.decode-tail", _ew(5, cfg.rds_block), None)
+    elif r is not None:
+        add("rds.pll+mix", _ew(5, n_if), None)
+        add("rds.decode-tail", _ew(5, cfg.rds_block), None)
+    return out
+
+
+def speed_of_light_report(rx, file=None, channels: int = 1,
+                          blocks: int = 1,
+                          sm_clock_hz: float | None = None) -> dict:
+    """Print per-stage FLOPs / bytes / speed-of-light floor per blk/ch at
+    the serving shape ``channels`` x ``blocks``, then one row per kernel
+    at that shape, and return the totals.
+
+    A stage's floor is max(flops / H100_F32_FLOPS, bytes / H100_HBM_BPS).
+    Weights stream once per launch and one launch covers every channel and
+    block of a segment, so ``w_bytes`` divides by channels * blocks. The
+    tier-1 carrier loop is bound by its serial chain, not by bytes or
+    operations: its row prints the chain (cycles per block and row, ms at
+    ``sm_clock_hz`` when given), and its time stays out of the summed
+    floor (its bytes and operations are in the totals).
+
+    Returns {"flops", "bytes", "floor_s", "ceiling_x"} per blk/ch (the
+    JAX package's keys) and "kernels": {name: {"floor_ms", "bound_by"}}
+    at the serving shape, each kernel's floor the sum of its rows'."""
+    file = file or sys.stderr
+    cfg = rx.cfg
+    budget = cfg.block_size_iq / cfg.rf_fs
+    amort = channels * blocks
+    tot_f = tot_b = tot_t = 0.0
+    kernels: dict[str, dict] = {}
+    print(f"# speed-of-light per blk/ch at serving shape {channels}ch x "
+          f"{blocks}blk ({budget*1e3:.2f} ms of signal), NVIDIA H100 SXM "
+          f"data-sheet peaks ({H100_HBM_BPS/1e12:.2f} TB/s HBM, "
+          f"{H100_F32_FLOPS/1e12:.0f} TFLOP/s f32):", file=file)
+    for name, c in stage_costs(rx, channels=channels, blocks=blocks):
+        w_b = c["w_bytes"]
+        byts = c["bytes"] - w_b + w_b / amort
+        cf, j, r = c["dims"]
+        head = (f"#  {name:26s} {c['flops']/1e6:9.2f} MFLOP "
+                f"{byts/1e3:9.1f} kB  ({cf}x{j}x{r})  ")
+        tot_f += c["flops"]
+        tot_b += byts
+        if "chain_ops" in c:
+            cycles = c["chain_ops"] * F32_LATENCY_CYCLES
+            chain_ms = (blocks * cycles / sm_clock_hz * 1e3
+                        if sm_clock_hz else None)
+            k = kernels.setdefault(c["kernel"], dict(floor_ms=0.0,
+                                                     bound_by="latency"))
+            if chain_ms is None:
+                k["floor_ms"] = None
+            elif k["floor_ms"] is not None:
+                k["floor_ms"] += chain_ms
+            print(head + f"chain {cycles} cycles per blk and row "
+                  "[latency-bound]", file=file)
+            continue
+        t_s, by = roofline_ms(byts, c["flops"])
+        t = t_s / 1e3
+        tot_t += t
+        if c["kernel"] is not None:
+            k = kernels.setdefault(c["kernel"], dict(floor_ms=0.0,
+                                                     by={}))
+            k["floor_ms"] += t * amort * 1e3
+            k["by"][by] = k["by"].get(by, 0.0) + t
+        print(head + f"floor {t*1e6:8.3f} us  [{by}-bound]", file=file)
+    print(f"#  {'TOTAL':26s} {tot_f/1e6:9.2f} MFLOP {tot_b/1e3:9.1f} kB"
+          f"{'':20s}floor {tot_t*1e6:8.3f} us -> SoL ceiling "
+          f"{budget/tot_t:,.0f}x realtime per channel", file=file)
+    for name, k in kernels.items():
+        if "by" in k:           # the bound that holds most of the floor
+            by = k.pop("by")
+            k["bound_by"] = max(by, key=by.get)
+        floor = ("n/a without a clock" if k["floor_ms"] is None
+                 else f"{k['floor_ms']:.4f} ms")
+        print(f"#  kernel {name:17s} floor {floor} at {channels}ch x "
+              f"{blocks}blk [{k['bound_by']}-bound]", file=file)
+    return {"flops": tot_f, "bytes": tot_b, "floor_s": tot_t,
+            "ceiling_x": budget / tot_t, "kernels": kernels}
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str, name: str = "trace"):
+    """torch.profiler around a region (CPU activity, and the card's when
+    there is one); yields the profiler, whose ``key_averages()`` are ready
+    after the region, and writes a Chrome trace to <log_dir>/<name>.json
+    (open it in chrome://tracing or Perfetto)."""
+    os.makedirs(log_dir, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, f"{name}.json"))

@@ -36,15 +36,20 @@ from real_time_sdr_tpu.utils import state as jstate
 from real_time_sdr_tpu.utils import synth as jsynth
 from real_time_sdr_tpu.utils.audio import stereo_pcm as jstereo_pcm
 from real_time_sdr_tpu_torch import cli
-from real_time_sdr_tpu_torch.models.channelizer import Channelizer
+from real_time_sdr_tpu_torch.models.channelizer import \
+    Channelizer as _Channelizer
 from real_time_sdr_tpu_torch.models.receiver import Receiver as _Receiver
 from real_time_sdr_tpu_torch.models.wideband_frontend import \
-    FusedWidebandFrontend
+    FusedWidebandFrontend as _FusedWidebandFrontend
 from real_time_sdr_tpu_torch.parallel.channel import ChannelBank
 from real_time_sdr_tpu_torch.utils import state as tstate
 
-# every test here runs on the CPU: the receiver's own default is the card
+# every test here runs on the CPU: the receiver's and the wideband
+# frontends' own default is the card
 Receiver = functools.partial(_Receiver, device="cpu")
+Channelizer = functools.partial(_Channelizer, device="cpu")
+FusedWidebandFrontend = functools.partial(_FusedWidebandFrontend,
+                                          device="cpu")
 
 
 def _snr(ref, y):

@@ -473,8 +473,8 @@ def test_two_stage_wideband_on_card_matches_cpu(card):
     x[0::2], x[1::2] = iw, qw
     raw = torch.from_numpy(np.clip(np.round(128 + 127 * x), 0,
                                    255).astype(np.uint8))
-    ch_gpu = Channelizer(cfg, wide_fs, offs).cuda()
-    ch_cpu = Channelizer(cfg, wide_fs, offs)
+    ch_gpu = Channelizer(cfg, wide_fs, offs, device="cuda")
+    ch_cpu = Channelizer(cfg, wide_fs, offs, device="cpu")
     ref = Receiver(0, stereo=True, rds=True, pll_tier=3, device="cpu")
     bank, bank_cpu = ChannelBank(rx, 4), ChannelBank(ref, 4)
     cs, cs_cpu = ch_gpu.init_state(), ch_cpu.init_state()
@@ -697,8 +697,9 @@ def test_sharded_wideband_on_card(card):
                                    255).astype(np.uint8)).cuda()
     devs = ["cuda", "cuda"]
     bank = ChannelBank(rx, 4)
-    for fe, cls in ((Channelizer(cfg, wide_fs, offs).cuda(), ShardedWideband),
-                    (FusedWidebandFrontend(cfg, wide_fs, offs).cuda(),
+    for fe, cls in ((Channelizer(cfg, wide_fs, offs, device="cuda"),
+                     ShardedWideband),
+                    (FusedWidebandFrontend(cfg, wide_fs, offs, device="cuda"),
                      ShardedFusedWideband)):
         sw = cls(fe, rx, devices=devs)
         fs, bs = sw.init_state()
@@ -725,3 +726,51 @@ def test_sharded_wideband_on_card(card):
             assert torch.equal(sw.shards[0].w, w0)
             assert not torch.equal(sw.shards[1].w, w1)
             assert sw.offsets == offs[:3] + [offs[2]]
+
+
+def test_staged_segment_bit_identical_on_card(card):
+    """32 channels x 12 blocks at mode 0 (tier 3): two chained segments,
+    the second host-staged into pinned memory and uploaded asynchronously,
+    against two unstaged calls: every output leaf and the state equal, and
+    the frontend, FIR-bank and decimating-FIR kernels launch on the staged
+    call."""
+    rx, iq = card
+    n2 = 6 * 2 * rx.cfg.block_size_iq
+    pairs = iq.numpy().reshape(-1, 2)
+    rows = np.stack([np.roll(pairs, -997 * c, axis=0).reshape(-1)
+                     for c in range(32)])
+    segs = [np.ascontiguousarray(rows[:, k * n2:(k + 1) * n2])
+            for k in range(2)]
+    st0, out0 = rx.run_segment(rx.init_state(32),
+                               torch.from_numpy(segs[0]).cuda())
+    _, ref = rx.run_segment(st0, torch.from_numpy(segs[1]).cuda())
+    buf = torch.empty((32, rx.frontend.staged_len(n2)), dtype=torch.uint8,
+                      pin_memory=True)
+    rx.frontend.stage_segment(segs[0][:, n2 - rx.frontend.tail_len:],
+                              segs[1], out=buf.numpy())
+    before = [k.launches for k in (frontend_fused, fir_bank, fir_decimate)]
+    st1, out = rx.run_segment_staged(st0, buf.cuda(non_blocking=True), n2)
+    torch.cuda.synchronize()
+    assert all(k.launches > b for k, b in
+               zip((frontend_fused, fir_bank, fir_decimate), before))
+    st_ref, _ = rx.run_segment(st0, torch.from_numpy(segs[1]).cuda())
+    for a, b in zip(out, ref):
+        assert (a is None and b is None) or torch.equal(a, b)
+    def leaves(tree):
+        if isinstance(tree, tuple):
+            return [x for t in tree for x in leaves(t)]
+        return [] if tree is None else [tree]
+    assert all(torch.equal(a, b)
+               for a, b in zip(leaves(st1), leaves(st_ref)))
+
+
+def test_wideband_frontends_default_to_the_card(card):
+    """Channelizer() and FusedWidebandFrontend() without a device build
+    every buffer on the current card."""
+    from real_time_sdr_tpu_torch.models.wideband_frontend import \
+        FusedWidebandFrontend
+    rx, _ = card
+    offs = [-450_000, -150_000, 150_000, 450_000]
+    for cls in (Channelizer, FusedWidebandFrontend):
+        fe = cls(rx.cfg, 4 * rx.cfg.rf_fs, offs)
+        assert {b.device for b in fe.buffers()} == {torch.device("cuda", 0)}

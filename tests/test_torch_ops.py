@@ -41,7 +41,8 @@ from real_time_sdr_tpu.utils import audio as jaudio
 from real_time_sdr_tpu.utils import synth as jsynth
 from real_time_sdr_tpu_torch.config import mode_config
 from real_time_sdr_tpu_torch.models import audio as taudio_paths
-from real_time_sdr_tpu_torch.models.channelizer import Channelizer
+from real_time_sdr_tpu_torch.models.channelizer import \
+    Channelizer as _Channelizer
 from real_time_sdr_tpu_torch.models.frontend import Frontend
 from real_time_sdr_tpu_torch.models.receiver import Receiver as _Receiver
 from real_time_sdr_tpu_torch.ops import fir as tfir
@@ -61,8 +62,10 @@ from real_time_sdr_tpu_torch.ops.demod import fm_demod
 from real_time_sdr_tpu_torch.utils import audio as taudio
 from real_time_sdr_tpu_torch.utils.state import state_from_numpy
 
-# every test here runs on the CPU: the receiver's own default is the card
+# every test here runs on the CPU: the receiver's and the wideband
+# frontends' own default is the card
 Receiver = functools.partial(_Receiver, device="cpu")
+Channelizer = functools.partial(_Channelizer, device="cpu")
 
 FS_IF = 240_000
 

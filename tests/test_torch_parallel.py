@@ -61,11 +61,12 @@ from real_time_sdr_tpu.parallel import distributed as jdist
 from real_time_sdr_tpu.parallel.channel import ChannelBank as JChannelBank
 from real_time_sdr_tpu.parallel import time_shard as jts
 from real_time_sdr_tpu.parallel import wideband as jwb
-from real_time_sdr_tpu_torch.models.channelizer import Channelizer
+from real_time_sdr_tpu_torch.models.channelizer import \
+    Channelizer as _Channelizer
 from real_time_sdr_tpu_torch.models.rds_framing import RdsFramer
 from real_time_sdr_tpu_torch.models.receiver import Receiver as _Receiver
 from real_time_sdr_tpu_torch.models.wideband_frontend import \
-    FusedWidebandFrontend
+    FusedWidebandFrontend as _FusedWidebandFrontend
 from real_time_sdr_tpu_torch.parallel import distributed as tdist
 from real_time_sdr_tpu_torch.parallel import time_shard as tts
 from real_time_sdr_tpu_torch.parallel.channel import ChannelBank, gather
@@ -74,8 +75,12 @@ from real_time_sdr_tpu_torch.parallel.wideband import (ShardedFusedWideband,
 from real_time_sdr_tpu_torch.utils import state as tstate
 from real_time_sdr_tpu_torch.utils import synth
 
-# every test here runs on the CPU: the receiver's own default is the card
+# every test here runs on the CPU: the receiver's and the wideband
+# frontends' own default is the card
 Receiver = functools.partial(_Receiver, device="cpu")
+Channelizer = functools.partial(_Channelizer, device="cpu")
+FusedWidebandFrontend = functools.partial(_FusedWidebandFrontend,
+                                          device="cpu")
 
 REPO = Path(__file__).resolve().parents[1]
 CPU2 = ["cpu", "cpu"]
@@ -789,7 +794,7 @@ _WORKER_WIDE = _WORKER_HEAD + textwrap.dedent("""
                                * 0.2) for _ in range(2))
     # stations split over processes: each rank builds its stations' shard
     sl = D.host_channel_slice(len(offs))
-    wf = FusedWidebandFrontend(cfg, wide_fs, offs)
+    wf = FusedWidebandFrontend(cfg, wide_fs, offs, device="cpu")
     sf = ShardedFusedWideband(wf.station_subset(sl), rx, devices=["cpu"])
     ws, bs = sf.init_state()
     _, _, out = sf.step(ws, bs, iw, qw)

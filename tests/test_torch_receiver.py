@@ -268,7 +268,9 @@ def test_framer_copy_events_identical(slice_run):
 
 
 def test_port_runs_without_jax():
-    """Importing the port and running a CPU run_segment, a 2-shard
+    """Importing the port (the measurement modules ``utils.logging``,
+    ``utils.benchkit`` and ``utils.io`` too) and running a CPU run_segment,
+    the same segment host-staged through run_segment_staged, a 2-shard
     time-sharded run, one tier-1 block, one wideband segment through both
     wideband frontends, the channel bank and the sharded wideband classes,
     the CLI on one block and the wideband CLI on one block of two stations
@@ -292,11 +294,22 @@ def test_port_runs_without_jax():
         from real_time_sdr_tpu_torch.parallel import (distributed,
                                                       time_shard, wideband)
         from real_time_sdr_tpu_torch.utils import state, synth, audio
+        from real_time_sdr_tpu_torch.utils import benchkit
+        from real_time_sdr_tpu_torch.utils import io as rt_io
+        from real_time_sdr_tpu_torch.utils import logging as rt_log
         rx = Receiver(0, stereo=True, rds=True, pll_tier=3, device="cpu")
         iq, _ = synth.station_iq(rx.cfg, 2)
         st, out = rx.run_segment(rx.init_state(1),
                                  torch.from_numpy(iq)[None])
         assert out.left.shape == (1, 2 * rx.cfg.audio_block)
+        xp = rx.frontend.stage_segment(
+            rx.init_state(1).frontend.iq_tail.numpy(), iq[None])
+        _, staged = benchkit.digest_step_staged(rx, iq.shape[0])(
+            rx.init_state(1), torch.from_numpy(xp))
+        assert torch.isfinite(staged)
+        rt_log.speed_of_light_report(rx, file=sys.stdout, channels=1,
+                                     blocks=2)
+        assert callable(rt_io.write_wav)
         sharded = time_shard.time_sharded_run(
             rx, torch.from_numpy(iq).reshape(2, -1), 2, devices=["cpu"])
         assert sharded.left.shape == (2, rx.cfg.audio_block)
@@ -322,7 +335,7 @@ def test_port_runs_without_jax():
         bank = ChannelBank(rx, 2)
         for fe in (make_wideband_frontend(rx.cfg, wide_fs, offs,
                                           device="cpu"),
-                   Channelizer(rx.cfg, wide_fs, offs)):
+                   Channelizer(rx.cfg, wide_fs, offs, device="cpu")):
             _, out, fst = bank.run_wideband(
                 bank.init_state(), fe, torch.from_numpy(iw),
                 torch.from_numpy(qw), fe.init_state())

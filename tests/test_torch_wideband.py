@@ -43,18 +43,25 @@ from real_time_sdr_tpu.models.wideband_frontend import \
 from real_time_sdr_tpu.parallel.channel import ChannelBank as JBank
 from real_time_sdr_tpu.utils import synth as jsynth
 from real_time_sdr_tpu_torch.config import mode_config
-from real_time_sdr_tpu_torch.models.channelizer import Channelizer
+from real_time_sdr_tpu_torch.models.channelizer import \
+    Channelizer as _Channelizer
 from real_time_sdr_tpu_torch.models.rds_framing import RdsFramer
 from real_time_sdr_tpu_torch.models.receiver import Receiver as _Receiver
+from real_time_sdr_tpu_torch.models.wideband_frontend import \
+    FusedWidebandFrontend as _FusedWidebandFrontend
 from real_time_sdr_tpu_torch.models.wideband_frontend import (
-    FusedWidebandFrontend, make_wideband_frontend, u8_to_rails)
+    make_wideband_frontend, u8_to_rails)
 from real_time_sdr_tpu_torch.parallel.channel import ChannelBank
 from real_time_sdr_tpu_torch.utils import synth as tsynth
 from real_time_sdr_tpu_torch.utils.state import (state_from_numpy,
                                                  state_to_numpy)
 
-# every test here runs on the CPU: the receiver's own default is the card
+# every test here runs on the CPU: the receiver's and the wideband
+# frontends' own default is the card
 Receiver = functools.partial(_Receiver, device="cpu")
+Channelizer = functools.partial(_Channelizer, device="cpu")
+FusedWidebandFrontend = functools.partial(_FusedWidebandFrontend,
+                                          device="cpu")
 
 CFG = mode_config(0)        # the port's
 JCFG = jmode_config(0)      # the JAX package's
@@ -269,18 +276,35 @@ GRIDS = [[-300_000, 100_000], [7], [10_000, 300_000], RASTER4,
 def test_fused_eligibility_matches_jax(grid):
     offs = GRIDS[grid]
     for wide_fs in (WIDE_FS, 8 * CFG.rf_fs):
-        assert (FusedWidebandFrontend.output_lcm(
+        assert (_FusedWidebandFrontend.output_lcm(
             wide_fs, CFG.rf_fs, CFG.rf_decim, offs) == JFused.output_lcm(
             wide_fs, CFG.rf_fs, CFG.rf_decim, offs))
-        ok = FusedWidebandFrontend.eligible(CFG, wide_fs, offs)
+        ok = _FusedWidebandFrontend.eligible(CFG, wide_fs, offs)
         assert ok == JFused.eligible(JCFG, wide_fs, offs)
-    assert FusedWidebandFrontend.eligible(CFG, WIDE_FS, [-300_000, 100_000])
-    assert not FusedWidebandFrontend.eligible(CFG, WIDE_FS, [7])
-    if not FusedWidebandFrontend.eligible(CFG, WIDE_FS, offs):
+    assert _FusedWidebandFrontend.eligible(CFG, WIDE_FS, [-300_000, 100_000])
+    assert not _FusedWidebandFrontend.eligible(CFG, WIDE_FS, [7])
+    if not _FusedWidebandFrontend.eligible(CFG, WIDE_FS, offs):
         with pytest.raises(ValueError):
             FusedWidebandFrontend(CFG, WIDE_FS, offs)
         assert isinstance(make_wideband_frontend(CFG, WIDE_FS, offs,
-                                                 device="cpu"), Channelizer)
+                                                 device="cpu"), _Channelizer)
+
+
+def test_wideband_frontends_default_to_the_card():
+    """Both wideband frontends build on the card when no device is named:
+    without one they raise RuntimeError (nothing gives way to the CPU);
+    ``device="cpu"`` builds every buffer on the CPU."""
+    for cls in (_Channelizer, _FusedWidebandFrontend):
+        if torch.cuda.is_available():
+            fe = cls(CFG, WIDE_FS, RASTER4)
+            assert {b.device.type for b in fe.buffers()} == {"cuda"}
+        else:
+            with pytest.raises(RuntimeError):
+                cls(CFG, WIDE_FS, RASTER4)
+        fe = cls(CFG, WIDE_FS, RASTER4, device="cpu")
+        assert {b.device.type for b in fe.buffers()} == {"cpu"}
+        assert {t.device.type for t in fe.init_state()
+                if isinstance(t, torch.Tensor)} == {"cpu"}
 
 
 def test_fused_precision_and_dtype_errors():
@@ -495,7 +519,7 @@ def test_slice_decodes_both_stations(rx, scene, path):
     fe = (make_wideband_frontend(CFG, WIDE_FS, offs, device="cpu")
           if path == "fused"
           else Channelizer(CFG, WIDE_FS, offs))
-    assert isinstance(fe, FusedWidebandFrontend) == (path == "fused")
+    assert isinstance(fe, _FusedWidebandFrontend) == (path == "fused")
     bank = ChannelBank(rx, 2)
     bs, fs_ = bank.init_state(), fe.init_state()
     seg = 6 * CFG.block_size_iq * fe.decim
