@@ -8,10 +8,20 @@ both the same numpy input and carried state converts between them
 path has a leading ``(C, ...)`` channel axis.
 
 Layers:
-  ops     — FIR banks, discriminator, carrier sync, RDS slicer; the CUDA
-            kernels under ``ops/cuda`` (sources in ``csrc/``)
-  models  — Frontend, MonoPath/StereoPath, RdsPath, Receiver, RdsFramer
-  utils   — state conversion, PCM formatting, synthetic station fixture
+  ops     — FIR banks, discriminator, carrier sync, RDS slicer; the
+            alternative RDS receiver's loops (``symbol_timing``: M&M
+            timing, ``costas``: the Costas loop); ``spectrum`` (Bartlett
+            PSD) and ``fourier`` (the transform ladder); the CUDA kernels
+            under ``ops/cuda`` (sources in ``csrc/``)
+  models  — Frontend, MonoPath/StereoPath, RdsPath, Receiver, RdsFramer and
+            SyncByOffsetDecoder, AltRdsReceiver (``rds_alt``), the wideband
+            frontends
+  parallel — channel bank over devices, time and station sharding
+  utils   — state conversion, PCM formatting, synthetic stations and
+            impairments, the measurement layer, the figure functions
+            (``viz``) and the float64 oracle (``golden_chain``)
+  cli, viz — the pipe CLI and the diagnostic figure sheet
+            (``python -m real_time_sdr_tpu_torch.viz``)
 
 Precision: every f32 contraction stays exact f32. A float32 matmul on the
 card would otherwise be free to use TF32 (about three decimal digits), and a

@@ -7,8 +7,10 @@ A jax-free copy of ``RdsFramer`` and its group parser from
 (1187.5 bps per channel); the data-dependent 26-bit window walk runs here
 on the host, with the syndromes of all windows in one vectorized mod-2
 matmul. Blocks that fail the syndrome check where the next offset word is
-known get one Meggitt burst-correction attempt. The alternative
-sync-by-offset decoder is not copied.
+known get one Meggitt burst-correction attempt. ``SyncByOffsetDecoder`` is
+the copy of the alternative, GNU-Radio-style sync-by-offset state machine
+(the alternative RDS receiver's framer); both framers share one group
+parser.
 """
 
 from __future__ import annotations
@@ -19,12 +21,15 @@ from typing import Callable
 import numpy as np
 
 from real_time_sdr_tpu_torch.ops.rds_codes import (OFFSET_SYNDROMES,
+                                                   OFFSET_WORDS,
+                                                   _crc_remainder,
                                                    parity_matrix_np)
 
-__all__ = ["PTY_NAMES", "RdsEvents", "RdsFramer", "burst_error_table",
-           "correct_block", "mjd_to_date"]
+__all__ = ["PTY_NAMES", "RdsEvents", "RdsFramer", "SyncByOffsetDecoder",
+           "burst_error_table", "correct_block", "mjd_to_date"]
 
 _H = parity_matrix_np()  # (26, 10)
+_SYN_TO_NAME = {v: k for k, v in OFFSET_SYNDROMES.items()}
 _SYNDROME_VALUES = np.array(
     [OFFSET_SYNDROMES[k] for k in ("A", "B", "C", "Cp", "D")], dtype=np.int64)
 _OFFSET_NAMES = ("A", "B", "C", "Cp", "D")
@@ -357,6 +362,175 @@ class RdsFramer(_GroupParsing):
         self._expect = d["expect"]
         self._run = int(d["run"])
         self._corr_streak = int(d["corr_streak"])
+        self._rt_flag = d.get("rt_flag")
+        self._ptyn = list(d.get("ptyn", " " * 8))
+        self._ptyn_flag = d.get("ptyn_flag")
+        ev = dict(d["events"])
+        ev["alt_freqs_mhz"] = tuple(ev.get("alt_freqs_mhz", ()))
+        self.events = RdsEvents(**ev)
+
+
+class SyncByOffsetDecoder(_GroupParsing):
+    """Alternative framer: GNU-Radio-style sync-by-offset state machine.
+
+    The reference ships this decoder dormant (``error_detection``,
+    src/rds_utilities.cpp:202-311, a port of model/OurRDS.py:405-509) beside
+    its active sliding-window framer. Semantics: hunt until two syndrome
+    hits land exactly 26*k bits apart (presync -> sync), then step in
+    26-bit blocks checking each block's CRC against the offset word
+    expected at its position (with the C' fallback at position 2), assemble
+    groups from runs of good blocks, and drop sync when more than
+    ``lose_threshold`` of ``window_blocks`` consecutive blocks are bad.
+
+    The reference's group-assembly register is reset every bit (a bug noted
+    in SURVEY.md); this implementation assembles correctly.
+    """
+
+    _POS = {"A": 0, "B": 1, "C": 2, "Cp": 2, "D": 3}
+    _BY_POS = ["A", "B", "C", "D"]
+
+    def __init__(self, on_event: Callable[[str, object], None] | None = None,
+                 lose_threshold: int = 40, window_blocks: int = 50,
+                 correct_bursts: int = 2):
+        self._on_event = on_event or (lambda kind, val: None)
+        self.lose_threshold = lose_threshold
+        self.window_blocks = window_blocks
+        # in synced mode the expected offset word is known per position, so
+        # failed blocks get one Meggitt burst-correction attempt spanning
+        # <= correct_bursts bits (0 disables, code limit 5); corrected
+        # blocks do not count toward sync loss
+        self.correct_bursts = int(correct_bursts)
+        self._reg = 0
+        self._bit_count = 0
+        self.synced = False
+        self._presync: tuple[int, int] | None = None  # (pos, bit_count)
+        self._block_bits = 0
+        self._block_pos = 0
+        self._blocks_seen = 0
+        self._wrong_blocks = 0
+        self._group = [None] * 4
+        self.events = RdsEvents()
+        self._ps_chars = 0
+        self._rt = [" "] * 64
+        self._ptyn = [" "] * 8
+        self._crc_cache: dict[int, int] = {}
+
+    def _syndrome(self, word26: int) -> int:
+        return _crc_remainder(word26, 26)
+
+    def _crc16(self, data: int) -> int:
+        if data not in self._crc_cache:
+            self._crc_cache[data] = _crc_remainder(data, 16)
+        return self._crc_cache[data]
+
+    def feed(self, bits) -> None:
+        syn_to_name = _SYN_TO_NAME
+        offset_words = OFFSET_WORDS
+        for b in np.asarray(bits, dtype=np.int64):
+            self._reg = ((self._reg << 1) | int(b)) & ((1 << 26) - 1)
+            self._bit_count += 1
+            if not self.synced:
+                s = self._syndrome(self._reg)
+                name = syn_to_name.get(s)
+                if name is None:
+                    continue
+                pos = self._POS[name]
+                if self._presync is None:
+                    self._presync = (pos, self._bit_count)
+                    continue
+                last_pos, last_count = self._presync
+                dist = (pos - last_pos) % 4
+                if dist == 0:
+                    dist = 4
+                if dist * 26 == self._bit_count - last_count:
+                    self.synced = True
+                    self._on_event("sync", self._bit_count)
+                    self._block_pos = (pos + 1) % 4
+                    self._block_bits = 0
+                    self._blocks_seen = 0
+                    self._wrong_blocks = 0
+                    self._group = [None] * 4
+                else:
+                    self._presync = (pos, self._bit_count)
+                continue
+            # synced: consume 26-bit blocks
+            self._block_bits += 1
+            if self._block_bits < 26:
+                continue
+            self._block_bits = 0
+            data = (self._reg >> 10) & 0xFFFF
+            checkword = self._reg & 0x3FF
+            expect = self._BY_POS[self._block_pos]
+            good = (checkword ^ offset_words[expect]) == self._crc16(data)
+            if not good and self._block_pos == 2:  # C' fallback
+                good = (checkword ^ offset_words["Cp"]) == self._crc16(data)
+            if not good and self.correct_bursts:
+                syn = self._syndrome(self._reg)
+                for name in ((expect, "Cp") if self._block_pos == 2
+                             else (expect,)):
+                    fixed = correct_block(self._reg, syn, name,
+                                          self.correct_bursts)
+                    if fixed is not None:
+                        data = (fixed >> 10) & 0xFFFF
+                        self.events.blocks_corrected += 1
+                        good = True
+                        break
+            if good:
+                self._group[self._block_pos] = data
+                if self._block_pos == 3 and all(
+                        g is not None for g in self._group):
+                    self._parse_group()
+            else:
+                self._wrong_blocks += 1
+                self._group[self._block_pos] = None
+            if self._block_pos == 3:
+                self._group = [None] * 4
+            self._block_pos = (self._block_pos + 1) % 4
+            self._blocks_seen += 1
+            if self._blocks_seen >= self.window_blocks:
+                if self._wrong_blocks > self.lose_threshold:
+                    self.synced = False
+                    self._presync = None
+                    self._on_event("sync_lost", self._wrong_blocks)
+                self._blocks_seen = 0
+                self._wrong_blocks = 0
+
+    def _parse_group(self) -> None:
+        a, bw, c, d = self._group
+        self._parse_group_words(a, bw, c, d)
+
+    def state_dict(self) -> dict:
+        """JSON-serializable snapshot (checkpoint twin of RdsFramer's)."""
+        return {
+            "reg": self._reg,
+            "bit_count": self._bit_count,
+            "synced": self.synced,
+            "presync": list(self._presync) if self._presync else None,
+            "block_bits": self._block_bits,
+            "block_pos": self._block_pos,
+            "blocks_seen": self._blocks_seen,
+            "wrong_blocks": self._wrong_blocks,
+            "group": list(self._group),
+            "ps_chars": self._ps_chars,
+            "rt": "".join(self._rt),
+            "rt_flag": getattr(self, "_rt_flag", None),
+            "ptyn": "".join(self._ptyn),
+            "ptyn_flag": getattr(self, "_ptyn_flag", None),
+            "events": dataclasses.asdict(self.events),
+        }
+
+    def load_state_dict(self, d: dict) -> None:
+        self._reg = int(d["reg"])
+        self._bit_count = int(d["bit_count"])
+        self.synced = bool(d["synced"])
+        self._presync = tuple(d["presync"]) if d["presync"] else None
+        self._block_bits = int(d["block_bits"])
+        self._block_pos = int(d["block_pos"])
+        self._blocks_seen = int(d["blocks_seen"])
+        self._wrong_blocks = int(d["wrong_blocks"])
+        self._group = list(d["group"])
+        self._ps_chars = int(d["ps_chars"])
+        self._rt = list(d["rt"])
         self._rt_flag = d.get("rt_flag")
         self._ptyn = list(d.get("ptyn", " " * 8))
         self._ptyn_flag = d.get("ptyn_flag")

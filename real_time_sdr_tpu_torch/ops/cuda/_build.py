@@ -54,6 +54,12 @@ _SIGNATURES = {
     # ang_scale, nco_scale, phase_adjust, four_pi, stream
     "sdr_pll_scan": ([_P, _LL, _P, _I, _I] + [_P] * 12 + [_F] * 2 + [_I] * 2
                      + [_F] * 4 + [_P], ctypes.c_int),
+    # z, n, n_max, mu0, sps, gain, out, n_valid, stream
+    "sdr_mm_timing": ([_P, _I, _I, _P, _F, _F, _P, _P, _P], ctypes.c_int),
+    # z, rows, n, phase0, freq0, alpha, beta, two_pi, out, freq_log,
+    # phase1, freq1, stream
+    "sdr_costas_scan": ([_P, _I, _I, _P, _P] + [_F] * 3 + [_P] * 5,
+                        ctypes.c_int),
     "sdr_error_string": ([_I], ctypes.c_char_p),
 }
 

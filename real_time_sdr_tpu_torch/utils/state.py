@@ -23,7 +23,8 @@ without its channel axis) loads with JAX's ``load_state`` and vice versa.
 
 A tree is a state class, or a plain tuple or list of trees (walked in
 order, as ``jax.tree_util`` does): the wideband CLI's checkpoint is the
-pair ``(frontend state, bank state)``.
+pair ``(frontend state, bank state)``. The alternative RDS receiver's
+Costas carry (``ops.costas.CostasCarry``) is one too.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from real_time_sdr_tpu_torch.models.receiver import (ReceiverOutput,
                                                      ReceiverState)
 from real_time_sdr_tpu_torch.models.wideband_frontend import \
     FusedWidebandState
+from real_time_sdr_tpu_torch.ops.costas import CostasCarry
 from real_time_sdr_tpu_torch.ops.pll import PllCarry
 from real_time_sdr_tpu_torch.ops.rds_bits import BitSyncState, TimingTrack
 from real_time_sdr_tpu_torch.ops.sync import FFSyncCarry
@@ -49,7 +51,7 @@ __all__ = ["map_state", "state_from_numpy", "state_to_numpy", "save_state",
 _CLASSES = {cls.__name__: cls for cls in (
     ReceiverState, ReceiverOutput, FrontendState, MonoState, StereoState,
     RdsState, FFSyncCarry, PllCarry, BitSyncState, TimingTrack,
-    ChannelizerState, FusedWidebandState)}
+    ChannelizerState, FusedWidebandState, CostasCarry)}
 
 
 def map_state(tree, leaf_fn, *others):

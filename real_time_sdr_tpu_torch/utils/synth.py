@@ -10,11 +10,15 @@ sps*2375 S/s -> resample to the RF rate -> mix to 57 kHz. For the same
 arguments it returns the same bytes as the JAX package's copy
 (``tests/test_torch_receiver.py``, ``tests/test_torch_wideband.py``).
 ``wideband_iq`` upsamples and frequency-shifts several stations into one
-wideband capture for the channelizer.
+wideband capture for the channelizer. The channel impairments
+(``impair_iq``), the offline resampler between RF rates (``rate_change``)
+and the simple tone and noise fixtures are copies too, pinned bit-equal in
+``tests/test_torch_copies.py``.
 """
 
 from __future__ import annotations
 
+import math
 from fractions import Fraction
 
 import numpy as np
@@ -29,7 +33,9 @@ from real_time_sdr_tpu_torch.ops.rds_codes import _crc_remainder
 __all__ = ["encode_group", "group_to_bits", "ps_groups", "radiotext_groups",
            "radiotext_2b_groups", "ptyn_groups", "date_to_mjd",
            "clocktime_group", "differential_encode", "manchester_symbols",
-           "rds_baseband", "fm_iq", "station_iq", "wideband_iq"]
+           "rds_baseband", "fm_iq", "station_iq", "impair_iq",
+           "generate_sin", "add_sin", "random_samples", "rate_change",
+           "wideband_iq"]
 
 # ---------------------------------------------------------------------------
 # RBDS transmit-side encoding
@@ -278,6 +284,149 @@ def station_iq(cfg: ReceiverConfig, n_blocks: int, *,
     truth = dict(ps_name=ps_name, pi=pi, pty=pty, left=left, right=right,
                  bits=bits, radiotext=radiotext, ptyn=ptyn, clock=clock)
     return iq, truth
+
+
+# ---------------------------------------------------------------------------
+# Channel impairments (beyond the reference: its only fixtures are clean
+# synthetic or off-air captures; these model what a real tuner front end
+# delivers so decode-survival is testable without recordings)
+# ---------------------------------------------------------------------------
+
+def impair_iq(iq_u8: np.ndarray, rf_fs: int, *,
+              multipath: list[tuple[float, float, float]] | None = None,
+              doppler_hz: float = 0.0,
+              freq_offset_hz: float = 0.0,
+              freq_drift_hz_s: float = 0.0,
+              noise_std: float = 0.0,
+              iq_gain_db: float = 0.0,
+              iq_phase_deg: float = 0.0,
+              dc_offset: complex = 0.0,
+              phase_noise_linewidth_hz: float = 0.0,
+              seed: int = 0) -> np.ndarray:
+    """Apply channel impairments to a uint8 interleaved IQ capture.
+
+    multipath: echoes as (delay_seconds, amplitude, phase_rad) added to the
+        direct path; with ``doppler_hz`` nonzero each echo k also rotates at
+        (k+1)*doppler_hz, i.e. a slow multi-ray fading channel (the sum
+        amplitude beats through constructive/destructive interference).
+    freq_offset_hz / freq_drift_hz_s: carrier frequency offset and linear
+        drift (tuner ppm error and thermal drift).
+    noise_std: complex AWGN sigma per I/Q rail (unit-amplitude signal).
+
+    Receiver-analog (tuner) artifacts — the real-RTL-SDR behaviours the
+    reference's off-air capture loop exercises (model/fmMonoBasic.py:30-42;
+    no capture ships, so these close the loop synthetically):
+
+    iq_gain_db / iq_phase_deg: quadrature demodulator imbalance — the Q
+        rail's mixer gain is off by ``iq_gain_db`` and its nominal 90 deg
+        split is off by ``iq_phase_deg`` (i' = i, q' = g*(q cos(phi) +
+        i sin(phi))); creates the classic image at -f. RTL-SDR (R820T)
+        datasheet-typical: ~0.5 dB / ~1-2 deg.
+    dc_offset: complex DC term added to the baseband (LO leakage /
+        ADC bias; the "center spike"). Typical few % of full scale.
+    phase_noise_linewidth_hz: local-oscillator phase noise as a Wiener
+        process whose accumulated phase gives a Lorentzian line of this
+        3-dB linewidth (var/sample = 2*pi*B/fs). Fractional-N PLL tuners
+        sit around tens of Hz equivalent linewidth.
+    """
+    z = ((iq_u8[0::2].astype(np.float64) - 128.0)
+         + 1j * (iq_u8[1::2].astype(np.float64) - 128.0)) / 128.0
+    n = len(z)
+    t = np.arange(n) / rf_fs
+    if multipath:
+        acc = z.copy()
+        for k, (delay_s, amp, ph) in enumerate(multipath):
+            d = int(round(delay_s * rf_fs))
+            if not 0 <= d < n:
+                raise ValueError(
+                    f"multipath delay {delay_s} s = {d} samples is outside "
+                    f"the {n}-sample capture")
+            echo = np.concatenate([np.zeros(d, dtype=z.dtype), z[:n - d]])
+            rot = np.exp(1j * (ph + 2 * np.pi * (k + 1) * doppler_hz * t))
+            acc = acc + amp * echo * rot
+        z = acc
+    if freq_offset_hz or freq_drift_hz_s:
+        z = z * np.exp(2j * np.pi * (freq_offset_hz * t
+                                     + 0.5 * freq_drift_hz_s * t * t))
+    if phase_noise_linewidth_hz > 0:
+        rng_pn = np.random.default_rng(seed + 0x9E3779B9)
+        sig = np.sqrt(2 * np.pi * phase_noise_linewidth_hz / rf_fs)
+        theta = np.cumsum(sig * rng_pn.standard_normal(n))
+        z = z * np.exp(1j * theta)
+    if iq_gain_db or iq_phase_deg:
+        g = 10.0 ** (iq_gain_db / 20.0)
+        phi = np.deg2rad(iq_phase_deg)
+        i_r, q_r = z.real, z.imag
+        z = i_r + 1j * g * (q_r * np.cos(phi) + i_r * np.sin(phi))
+    if dc_offset:
+        z = z + dc_offset
+    if noise_std > 0:
+        rng = np.random.default_rng(seed)
+        z = z + noise_std * (rng.standard_normal(n)
+                             + 1j * rng.standard_normal(n))
+    out = np.empty(2 * n)
+    out[0::2] = z.real
+    out[1::2] = z.imag
+    return np.clip(np.round(128.0 + 127.0 * out), 0, 255).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Simple test-fixture generators (src/genfunc.cpp:13-41 twins)
+# ---------------------------------------------------------------------------
+
+def generate_sin(fs: float, freq: float, n: int, amplitude: float = 1.0,
+                 phase: float = 0.0) -> np.ndarray:
+    """Single tone (``generateSin`` twin)."""
+    t = np.arange(n) / fs
+    return amplitude * np.sin(2 * np.pi * freq * t + phase)
+
+
+def add_sin(fs: float, freqs, n: int, amplitudes=None,
+            phases=None) -> np.ndarray:
+    """Sum of tones (``addSin`` twin)."""
+    freqs = list(freqs)
+    amplitudes = list(amplitudes) if amplitudes else [1.0] * len(freqs)
+    phases = list(phases) if phases else [0.0] * len(freqs)
+    out = np.zeros(n)
+    for f, a, p in zip(freqs, amplitudes, phases):
+        out += generate_sin(fs, f, n, a, p)
+    return out
+
+
+def random_samples(n: int, max_value: float = 1.0, seed: int = 0,
+                   bits: int = 16) -> np.ndarray:
+    """Uniform random fixture (``generateRandomSamples`` twin)."""
+    rng = np.random.default_rng(seed)
+    levels = 1 << bits
+    return (rng.integers(0, levels, n) / levels * 2.0 - 1.0) * max_value
+
+
+def rate_change(iq_u8: np.ndarray, fs_in: int, fs_out: int) -> np.ndarray:
+    """Offline IQ resampler between canonical RF rates.
+
+    Twin of model/fmRateChange.py: rational resample (from the gcd) of the
+    I and Q streams separately, requantized to uint8 — generates
+    alternate-mode test inputs from a single capture. Canonical rates:
+    {2400, 2880, 2304, 1920, 1440, 1152, 960} kS/s.
+
+    Deliberate requantization divergence from the reference
+    (model/fmRateChange.py:60-64): it writes ``128 + int(x*127)`` —
+    truncation toward zero, 127/128 gain, and NO clipping (resampler
+    overshoot past full scale silently WRAPS the uint8). Here: round,
+    full 128 scale, clipped — cross-checked against the reference run
+    unmodified in tests/test_reference_oracle.py (agreement within the
+    documented 1-2 LSB class on non-overshooting samples).
+    """
+    g = math.gcd(fs_in, fs_out)
+    up, down = fs_out // g, fs_in // g
+    i = (iq_u8[0::2].astype(np.float64) - 128.0) / 128.0
+    q = (iq_u8[1::2].astype(np.float64) - 128.0) / 128.0
+    i2 = sp_signal.resample_poly(i, up, down)
+    q2 = sp_signal.resample_poly(q, up, down)
+    out = np.empty(2 * len(i2))
+    out[0::2] = i2
+    out[1::2] = q2
+    return np.clip(np.round(128.0 + 128.0 * out), 0, 255).astype(np.uint8)
 
 
 def wideband_iq(cfg: ReceiverConfig, wide_fs: int, stations: list[dict],

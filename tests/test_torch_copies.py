@@ -2,12 +2,15 @@
 their originals.
 
 ``real_time_sdr_tpu_torch`` imports nothing of ``real_time_sdr_tpu``; it keeps
-copies of ``config.py``, ``ops/filters.py`` and ``utils/native_io.py``. Each
-is pinned here: every public constant equal, ``mode_config`` field by field
-and derived size by derived size for modes 0-3, each filter design function
-bit-equal (float64, ``assert_array_equal``: the copy runs the same numpy
-expressions) on the arguments the receiver gives it, and ``native_io``'s
-public names with the one library path.
+copies of ``config.py``, ``ops/filters.py`` and ``utils/native_io.py``, of the
+impairment and fixture generators of ``utils/synth.py``, and of the float64
+oracle ``golden/chain.run_stages`` with the ``golden/dsp.py`` functions it
+reaches (``utils/golden_chain.py``). Each is pinned here: every public
+constant equal, ``mode_config`` field by field and derived size by derived
+size for modes 0-3, each filter design function bit-equal (float64,
+``assert_array_equal``: the copy runs the same numpy expressions) on the
+arguments the receiver gives it, ``native_io``'s public names with the one
+library path, the generators' arrays and the oracle's stages bit-equal.
 """
 
 import dataclasses
@@ -143,3 +146,71 @@ def test_native_io_round_trip(tmp_path):
         wr.close()
     np.testing.assert_array_equal(
         np.fromfile(tmp_path / "out.raw", np.uint8), data)
+
+
+def _capture(n_blocks=1):
+    from real_time_sdr_tpu_torch.utils import synth
+    return synth.station_iq(tconfig.mode_config(0), n_blocks,
+                            ps_name="COPIES  ")[0]
+
+
+@pytest.mark.parametrize("kw", [
+    dict(noise_std=0.05, seed=3),
+    dict(multipath=[(2e-6, 0.3, 1.1), (5e-6, 0.15, -0.7)], doppler_hz=1.5,
+         noise_std=0.02),
+    dict(freq_offset_hz=400.0, freq_drift_hz_s=-150.0),
+    dict(iq_gain_db=0.5, iq_phase_deg=2.0, dc_offset=0.03 + 0.02j,
+         phase_noise_linewidth_hz=30.0, freq_offset_hz=400.0,
+         noise_std=0.02),
+], ids=["awgn", "multipath", "drift", "tuner"])
+def test_impair_iq_bit_equal(kw):
+    from real_time_sdr_tpu.utils import synth as jsynth
+    from real_time_sdr_tpu_torch.utils import synth as tsynth
+    iq = _capture()
+    a = tsynth.impair_iq(iq, 2_400_000, **kw)
+    b = jsynth.impair_iq(iq, 2_400_000, **kw)
+    assert a.dtype == b.dtype == np.uint8
+    np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError):
+        tsynth.impair_iq(iq, 2_400_000, multipath=[(1.0, 0.5, 0.0)])
+
+
+def test_fixture_generators_bit_equal():
+    """``rate_change`` (mode 0 -> modes 1 and 3), ``generate_sin``,
+    ``add_sin`` and ``random_samples`` give the JAX package's arrays."""
+    from real_time_sdr_tpu.utils import synth as jsynth
+    from real_time_sdr_tpu_torch.utils import synth as tsynth
+    iq = _capture()[:40_000]
+    for fs_out in (1_440_000, 1_920_000):
+        np.testing.assert_array_equal(
+            tsynth.rate_change(iq, 2_400_000, fs_out),
+            jsynth.rate_change(iq, 2_400_000, fs_out))
+    np.testing.assert_array_equal(tsynth.generate_sin(48e3, 440.0, 960, 0.5,
+                                                      0.3),
+                                  jsynth.generate_sin(48e3, 440.0, 960, 0.5,
+                                                      0.3))
+    for kw in (dict(), dict(amplitudes=[1, 0.5], phases=[0.1, 0.2])):
+        np.testing.assert_array_equal(
+            tsynth.add_sin(48e3, [1000.0, 2000.0], 480, **kw),
+            jsynth.add_sin(48e3, [1000.0, 2000.0], 480, **kw))
+    np.testing.assert_array_equal(tsynth.random_samples(100, 2.0, 1, 12),
+                                  jsynth.random_samples(100, 2.0, 1, 12))
+
+
+def test_golden_chain_bit_equal():
+    """The port's oracle copy (``utils.golden_chain.run_stages``) gives
+    ``golden.chain.run_stages``'s every stage on one mode-0 block, with the
+    stereo and RDS branches and without them."""
+    from golden import chain as jchain
+    from real_time_sdr_tpu_torch.utils import golden_chain
+    cfg = tconfig.mode_config(0)
+    iq = _capture()
+    for kw in (dict(), dict(stereo=False, rds=False)):
+        a = golden_chain.run_stages(cfg, iq, **kw)
+        b = jchain.run_stages(jconfig.mode_config(0), iq, **kw)
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert a[k].dtype == b[k].dtype == np.float64
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    with pytest.raises(ValueError):
+        golden_chain.fir_block(np.zeros(8), np.ones(5), np.zeros(3))

@@ -774,3 +774,89 @@ def test_wideband_frontends_default_to_the_card(card):
     for cls in (Channelizer, FusedWidebandFrontend):
         fe = cls(rx.cfg, 4 * rx.cfg.rf_fs, offs)
         assert {b.device for b in fe.buffers()} == {torch.device("cuda", 0)}
+
+
+def _alt_station(n_blocks=32):
+    return synth.station_iq(Receiver(0, device="cpu").cfg, n_blocks,
+                            ps_name="ALT-PATH", pi=0x2ABC,
+                            pilot_freq=19_000.0 * (1 + 200e-6))[0]
+
+
+def test_mm_timing_kernel_matches_plain(card):
+    """The alternative path's unit-RMS baseband (32 blocks) and a stream
+    from 3 samples up: n_valid equal and symbols > 100 dB against the plain
+    loop on the same card tensors (every f32 step separately rounded in
+    both, so they should agree bit for bit), the count left on the card,
+    one launch each."""
+    from real_time_sdr_tpu_torch.models.rds_alt import AltRdsReceiver
+    from real_time_sdr_tpu_torch.ops.cuda import mm_timing_kernel
+    from real_time_sdr_tpu_torch.ops.symbol_timing import (comb_acquire,
+                                                           mm_timing_plain)
+    alt = AltRdsReceiver(0, device="cuda")
+    iq = torch.from_numpy(_alt_station()).cuda()[None]
+    demod = alt.frontend(iq, alt.frontend.init_state(1))[0][0]
+    bb = alt.baseband(demod)
+    rng = np.random.default_rng(4)
+    cases = [(bb, comb_acquire(bb, 16), 0.01)]
+    for n, mu0 in ((3, 0.0), (40, 3.7), (5000, 0.5), (70_000, 0.0)):
+        z = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+            np.complex64)
+        cases.append((torch.from_numpy(z).cuda(),
+                      torch.tensor(mu0, device="cuda"), 0.05))
+    for z, mu0, gain in cases:
+        before = mm_timing_kernel.launches
+        sk, nk = mm_timing_kernel(z, 16.0, gain, mu0)
+        assert mm_timing_kernel.launches == before + 1
+        assert nk.device.type == "cuda" and nk.dtype == torch.int32
+        sp, npl = mm_timing_plain(z, 16.0, gain, mu0)
+        assert int(nk) == int(npl)
+        assert _snr(torch.view_as_real(sp), torch.view_as_real(sk)) > 100.0
+        assert not sk[int(nk):].any()
+
+
+def test_costas_scan_kernel_matches_plain(card):
+    """Two rows of noisy BPSK with residual carriers, from a cold and from a
+    carried carry, and a batch of 3 x 2 rows of 9 samples: derotated
+    > 80 dB, freq_log and the carry within 1e-5 of the plain loop run on the
+    same card tensors."""
+    from real_time_sdr_tpu_torch.ops.costas import (CostasCarry,
+                                                    costas_scan_plain)
+    from real_time_sdr_tpu_torch.ops.cuda import costas_kernel
+    rng = np.random.default_rng(5)
+    for shape, f in (((2, 1200), 0.06), ((2, 1200), -0.02), ((3, 2, 9), 0.1),
+                     ((1, 1), 0.0)):
+        n = shape[-1]
+        s = rng.choice([-1.0, 1.0], size=shape)
+        z = s * np.exp(1j * (f * np.arange(n) + 0.7))
+        z = torch.from_numpy((z + 0.05 * rng.standard_normal(shape)).astype(
+            np.complex64)).cuda()
+        carry = CostasCarry(
+            torch.from_numpy(rng.uniform(0, 6.28, shape[:-1]).astype(
+                np.float32)).cuda(),
+            torch.full(shape[:-1], f, device="cuda"))
+        before = costas_kernel.launches
+        dk, fk, ck = costas_kernel(z, carry, 0.02, 1e-4)
+        assert costas_kernel.launches == before + 1
+        dp, fp, cp = costas_scan_plain(z, carry, 0.02, 1e-4)
+        assert _snr(torch.view_as_real(dp), torch.view_as_real(dk)) > 80.0
+        assert (fk - fp).abs().max().item() < 1e-5
+        dph = (ck.phase - cp.phase).abs()
+        assert torch.minimum(dph, 2 * math.pi - dph).max().item() < 1e-5
+        assert (ck.freq - cp.freq).abs().max().item() < 1e-5
+
+
+def test_alt_receiver_on_card_matches_cpu(card):
+    """The alternative receiver on the card: the four kernels of its path
+    launch once each, and its bits, PS and PI equal its CPU run's."""
+    from real_time_sdr_tpu_torch.models.rds_alt import AltRdsReceiver
+    from real_time_sdr_tpu_torch.ops.cuda import (costas_kernel,
+                                                  mm_timing_kernel)
+    iq = _alt_station()
+    ks = (frontend_fused, fir_bank, mm_timing_kernel, costas_kernel)
+    before = [k.launches for k in ks]
+    dec, diag = AltRdsReceiver(0, device="cuda").decode(iq)
+    assert [k.launches - b for k, b in zip(ks, before)] == [1, 1, 1, 1]
+    ref, rdiag = AltRdsReceiver(0, device="cpu").decode(iq)
+    assert dec.events.ps_name == ref.events.ps_name == "ALT-PATH"
+    assert dec.events.pi == 0x2ABC
+    np.testing.assert_array_equal(diag.bits, rdiag.bits)

@@ -269,7 +269,10 @@ def test_framer_copy_events_identical(slice_run):
 
 def test_port_runs_without_jax():
     """Importing the port (the measurement modules ``utils.logging``,
-    ``utils.benchkit`` and ``utils.io`` too) and running a CPU run_segment,
+    ``utils.benchkit`` and ``utils.io``, the diagnostic entry point ``viz``
+    with ``_viz_ber``, ``models.rds_alt``, ``ops.spectrum`` and
+    ``utils.golden_chain`` too), decoding 2 blocks through the alternative
+    RDS receiver, a PSD, and running a CPU run_segment,
     the same segment host-staged through run_segment_staged, a 2-shard
     time-sharded run, one tier-1 block, one wideband segment through both
     wideband frontends, the channel bank and the sharded wideband classes,
@@ -297,6 +300,10 @@ def test_port_runs_without_jax():
         from real_time_sdr_tpu_torch.utils import benchkit
         from real_time_sdr_tpu_torch.utils import io as rt_io
         from real_time_sdr_tpu_torch.utils import logging as rt_log
+        from real_time_sdr_tpu_torch import _viz_ber, viz
+        from real_time_sdr_tpu_torch.models.rds_alt import AltRdsReceiver
+        from real_time_sdr_tpu_torch.ops import spectrum
+        from real_time_sdr_tpu_torch.utils import golden_chain
         rx = Receiver(0, stereo=True, rds=True, pll_tier=3, device="cpu")
         iq, _ = synth.station_iq(rx.cfg, 2)
         st, out = rx.run_segment(rx.init_state(1),
@@ -361,6 +368,13 @@ def test_port_runs_without_jax():
                 assert os.path.getsize(os.path.join(
                     d, f"station_{k}.pcm")) == 4 * rx.cfg.audio_block
             assert os.path.exists(os.path.join(d, "ck.npz"))
+        _, diag = AltRdsReceiver(0, device="cpu").decode(iq)
+        assert diag.baseband.shape[0] > 0
+        _, psd = spectrum.estimate_psd(torch.from_numpy(iq[:4096]).float(),
+                                       2.4e6)
+        assert psd.shape == (256,)
+        assert callable(_viz_ber.ber_curve) and callable(viz.main)
+        assert callable(golden_chain.run_stages)
         foreign = sorted(
             m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "real_time_sdr_tpu",
