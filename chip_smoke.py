@@ -7,7 +7,9 @@ Run from the root of a checkout, on a machine with one NVIDIA Hopper card
 and the CUDA toolkit. It imports no jax. Phases, each of which exits
 non-zero on failure:
 
-1. card and versions (``nvidia-smi`` name and power limit, torch, CUDA);
+1. card and versions (``nvidia-smi`` name and power limit, torch, CUDA,
+   ``torch.backends.cuda.matmul``'s ``allow_tf32``, which must be off, and
+   ``allow_bf16_reduced_precision_reduction``, left at its default);
 2. build: the kernels compile from ``real_time_sdr_tpu_torch/csrc`` into
    the git-ignored ``real_time_sdr_tpu_torch/_build/`` (one ``nvcc`` per
    source, in parallel);
@@ -37,7 +39,18 @@ non-zero on failure:
    f32 operations over 67 TFLOP/s, the H100 SXM data-sheet peaks of
    ``utils.logging``; the counts are the modules' ``cost()``) and,
    where one PyTorch call computes the same function (``conv1d`` for a
-   FIR without upsampling), that call's time;
+   FIR without upsampling), that call's time. Then the wideband fold
+   products (library calls, ``models.channelizer.fold_product``) at the
+   64-station shapes of both frontends and each precision they take
+   (two-stage f32 and bf16, fused f32, bf16 and bf16x2) on random rails:
+   the result must be float32 and > 90 dB against its plain version on the
+   same card tensors (f32: the float64 product; bf16: both operands upcast
+   to f32), with its time (median of 10 behind a sleep kernel), useful
+   TFLOP/s and the bound of the frontend's ``cost()`` (``fold_cost`` for
+   the two-stage product) against the peak of its kind (f32 67, bf16 989
+   TFLOP/s); beside a bf16 product two yardsticks off the path: the same
+   product with K unpadded (rows not a multiple of 16 bytes) and with a
+   bf16 result (``fr @ w``);
 4. mode-0 path: a synthetic station tiled to 32 channels (distinct time
    shifts) through ``Receiver(0, stereo=True, rds=True, pll_tier=3,
    device="cuda").run_segment`` over three chained 12-block segments; the
@@ -85,7 +98,15 @@ non-zero on failure:
    ``fir_decimate`` must launch on both; PS/PI must
    decode on the 3 stations on both paths; the
    two-stage u8 of the first 2 blocks must agree with the CPU run (within
-   1 LSB on < 1 % of bytes); warm segments are timed;
+   1 LSB on < 1 % of bytes); warm segments are timed. Then the same
+   capture through the two-stage frontend at bf16 and the fused one at
+   bf16 and bf16x2: PS/PI on the 3 stations (the gate), the kernels
+   launched as at f32, the fused demod of the real stations > 35 dB (bf16)
+   and > 45 dB (bf16x2) against the f32 run's, the two-stage u8 against
+   the f32 run's (the share of bytes that differ and by how many LSB,
+   printed), the RDS bits of segments 1-2 from the f32 run's carried state
+   against the f32 run's (equal, or the count that differ, printed), warm
+   segments beside the f32 run's;
 6. CLI: ``python -m real_time_sdr_tpu_torch.cli 0 r --stats`` in a
    subprocess with its defaults (tier 1, comb timing, pinned staged
    upload, one group in flight) on a 192-block synthetic capture (48
@@ -106,7 +127,10 @@ non-zero on failure:
    PS, 64 PCM files of exactly 36 x audio_block x 2 samples, its ``kernel
    launches`` line (``fir_bank`` and ``fir_decimate`` above 0), its
    real-time multiple on the capture rate; again with ``--pipeline 4``
-   (PCM byte-identical); with ``--retune 1:0:<slot 32's offset>``
+   (PCM byte-identical); with ``--wb-fir bf16`` (the 3 stations' PS, 64
+   PCM files of the exact size, the real stations' PCM against the first
+   run's and both real-time multiples printed); with ``--retune
+   1:0:<slot 32's offset>``
    (station 0 prints slot 32's PS after segment 1, the other 63 PCM files
    byte-identical); and as two runs with ``--checkpoint`` (18 blocks, then
    the rest: the joined PCM within 1 LSB of the first run's, the three
@@ -155,8 +179,9 @@ its ``kernel launches`` line).
 The last two lines are the kernels' JSON and the device JSON.
 ``--profile DIR`` also writes a torch.profiler table and Chrome trace of
 one warm segment of each path (the staged mode-0 segment among them) to
-DIR and prints the segment's device busy time, idle share and FIR-bank
-device time.
+DIR and prints the segment's device busy time, idle share, FIR-bank
+device time and the device time of its matrix products (``aten::mm``: the
+wideband fold product), at every precision of phase 5.
 ``--sass DIR`` writes ``cuobjdump -sass`` of the built library's
 ``pll_scan``, ``frontend_fused``, ``mm_timing`` and ``costas_scan`` kernels
 to DIR. ``--kernels`` stops
@@ -238,11 +263,12 @@ def device_ms(torch, fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, kind: str = "") -> dict:
     """The least time the card could take, in ms, and what bounds it
-    (``utils.logging.roofline_ms``: the H100 SXM data-sheet peaks)."""
+    (``utils.logging.roofline_ms``: the H100 SXM data-sheet peaks, the
+    operations against the peak of the cost's ``kind``)."""
     from real_time_sdr_tpu_torch.utils.logging import roofline_ms
-    ms, by = roofline_ms(nbytes, flops)
+    ms, by = roofline_ms(nbytes, flops, kind)
     return dict(bound_ms=ms, bound_by=by)
 
 
@@ -300,6 +326,14 @@ def profile_segment(torch, card, path, name, run, run_ms):
     fd_us = sum(e.self_device_time_total for e in avg
                 if e.device_type == DeviceType.CUDA
                 and "fir_decimate" in e.key)
+    # the wideband fold product: the device time of the kernels aten::mm
+    # launched. The profiler of the card's machine does not record every
+    # library GEMM kernel: where an aten::mm ran and no device time came
+    # with it, the busy time lacks the product (phase 3 times it)
+    mm = [e for e in avg if e.key == "aten::mm"]
+    mm_us = sum(e.device_time_total for e in mm)
+    mm_txt = (f"{mm_us / 1e3:.3f} ms" if mm_us or not mm else
+              "not recorded by the profiler: device busy lacks it")
     table = avg.table(sort_by="device_time_total", row_limit=40)
     out = os.path.join(path, f"{name}.txt")
     with open(out, "w") as f:
@@ -310,7 +344,7 @@ def profile_segment(torch, card, path, name, run, run_ms):
           f"{sum(fir_us.values()) / 1e3:.3f} ms (tiled "
           f"{fir_us['tiled'] / 1e3:.3f}, general "
           f"{fir_us['general'] / 1e3:.3f}); fir_decimate "
-          f"{fd_us / 1e3:.3f} ms")
+          f"{fd_us / 1e3:.3f} ms; matrix products (aten::mm) {mm_txt}")
     print("\n".join(table.splitlines()[:22]))
 
 
@@ -333,12 +367,14 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a card")
     try:
-        from real_time_sdr_tpu_torch.models.channelizer import Channelizer
+        from real_time_sdr_tpu_torch.models.channelizer import (
+            Channelizer, fold_product, fold_product_plain)
         from real_time_sdr_tpu_torch.models.rds_alt import AltRdsReceiver
         from real_time_sdr_tpu_torch.models.rds_framing import RdsFramer
         from real_time_sdr_tpu_torch.models.receiver import Receiver
         from real_time_sdr_tpu_torch.models.wideband_frontend import (
-            FusedWidebandFrontend, make_wideband_frontend, u8_to_rails)
+            WB_DTYPES, FusedWidebandFrontend, make_wideband_frontend,
+            u8_to_rails)
         from real_time_sdr_tpu_torch.ops.cuda import _build
         from real_time_sdr_tpu_torch.ops.cuda import (KERNELS, chan_epilogue,
                                                       fir_bank, fir_decimate,
@@ -380,7 +416,8 @@ def main() -> None:
             ShardedFusedWideband, ShardedWideband)
         from real_time_sdr_tpu_torch.utils import benchkit, synth
         from real_time_sdr_tpu_torch.utils.logging import (
-            F32_LATENCY_CYCLES, launch_cost, speed_of_light_report)
+            F32_LATENCY_CYCLES, launch_cost, peak_flops,
+            speed_of_light_report)
         from real_time_sdr_tpu_torch.utils.state import map_state
     except ImportError as e:
         fail(f"the port is not importable here ({e}); run from the root "
@@ -405,6 +442,14 @@ def main() -> None:
           f"python {sys.version.split()[0]}, "
           f"device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}")
+    # both left at torch's defaults: f32 products in full f32, and the
+    # bf16 fold products accumulate in f32 (out_dtype=float32)
+    print(f"torch.backends.cuda.matmul: allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}, "
+          "allow_bf16_reduced_precision_reduction "
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on for float32 matmuls")
     dev = torch.device("cuda")
 
     # -- 2. build ----------------------------------------------------------
@@ -998,6 +1043,88 @@ def main() -> None:
                                        "chain_floor_ms", "bit_identical")},
         alt_path=costas_main, long_stream=costas_long)
     del zl, syms_long, alt_demod, alt_bb
+
+    # -- the wideband fold products (library calls, not kernels of the
+    # port) at the 64-station shapes of both frontends, at each precision
+    # each takes: the product on random rails against its plain version on
+    # the same card tensors (f32: the float64 product; bf16 and bf16x2:
+    # both operands upcast to f32, exact products), the result dtype, the
+    # time, useful TFLOP/s and the bound of the frontend's cost() (the
+    # two-stage fold_cost counts the product alone; the fused cost() the
+    # whole frontend, whose operations are all the product's). The
+    # frontends are kept for phase 5.
+    wide_fs = WB_MULT * cfg.rf_fs
+    offs = [int((k - (WB_STATIONS - 1) / 2) * 300_000)
+            for k in range(WB_STATIONS)]
+    n_wb = BLOCKS * cfg.block_size_iq * WB_MULT          # samples a rail
+    wb_fe = {("two_stage", dt): Channelizer(cfg, wide_fs, offs,
+                                            compute_dtype=dt, device=dev)
+             for dt in ("f32", "bf16")}
+    for dt in WB_DTYPES:
+        wb_fe["fused", dt] = make_wideband_frontend(
+            cfg, wide_fs, offs, compute_dtype=dt, device=dev)
+        if not isinstance(wb_fe["fused", dt], FusedWidebandFrontend):
+            fail("make_wideband_frontend did not pick the fused frontend")
+    rails = 0.3 * torch.randn((2, n_wb + 4096), device=dev, generator=gen)
+    fold_rows = {}
+    for (path, dt), fe_w in wb_fe.items():
+        if path == "two_stage":
+            tl = fe_w.fold_tail
+            fr = fe_w.fold_frames(rails[0, :tl + n_wb], rails[1, :tl + n_wb],
+                                  -(-(n_wb // fe_w.decim) // fe_w.fold_R))
+            w_op, cost = fe_w.fold_W, fe_w.fold_cost(n_wb)
+        else:
+            tl = fe_w.tail_len
+            fr = fe_w.frames(rails[0, :tl + n_wb], rails[1, :tl + n_wb])
+            w_op, cost = fe_w.w, fe_w.cost(n_wb)
+        y = fold_product(fr, w_op)
+        if dt == "f32":
+            plain = lambda: fr.double() @ w_op.double()        # noqa: E731
+        else:
+            plain = lambda: fold_product_plain(fr, w_op)       # noqa: E731
+        yp = plain()
+        torch.cuda.synchronize()
+        if y.dtype != torch.float32:
+            fail(f"the {dt} fold product [{path}] returned {y.dtype}")
+        s_ = snr_db(yp, y)
+        err = (y.double() - yp.double()).abs().max().item()
+        t_k = device_ms(torch, lambda: fold_product(fr, w_op))
+        t_p = device_ms(torch, plain)
+        bnd = bound(*launch_cost(cost, 1), cost["kind"])
+        tflops = cost["flops"] / t_k / 1e9
+        yard = {}
+        if dt != "f32":
+            # two yardsticks of the library's bf16 product, not on the
+            # path: the depth K unpadded (the operands' rows not a multiple
+            # of 16 bytes), and the bf16 result that fr @ w gives
+            k = cost["dims"][1]
+            fru, wu = fr[:, :k].contiguous(), w_op[:k].contiguous()
+            yard = dict(k=k, k_padded=fr.shape[1], unpadded_ms=device_ms(
+                torch, lambda: fold_product(fru, wu)),
+                bf16_result_ms=device_ms(torch, lambda: fr @ w_op))
+            del fru, wu
+        print(f"fold product [{path}, {dt}]: {tuple(fr.shape)} {fr.dtype} @ "
+              f"{tuple(w_op.shape)} {w_op.dtype} -> {tuple(y.shape)} "
+              f"{y.dtype}: SNR {s_:.1f} dB against the plain version "
+              f"({'float64' if dt == 'f32' else 'f32 upcast'}), max abs err "
+              f"{err:.3g}; {t_k:.4f} ms ({tflops:.1f} TFLOP/s useful), plain "
+              f"{t_p:.4f} ms; bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}, {peak_flops(cost['kind'])[1]} peak; "
+              f"{100 * bnd['bound_ms'] / t_k:.0f} % of it reached) on {card}")
+        if yard:
+            print(f"  yardsticks: K {yard['k']} unpadded (path: "
+                  f"{yard['k_padded']}) {yard['unpadded_ms']:.4f} ms; a bf16 "
+                  f"result (fr @ w) {yard['bf16_result_ms']:.4f} ms")
+        if not s_ > 90.0:
+            fail(f"the {dt} fold product [{path}] disagrees with its plain "
+                 f"version ({s_:.1f} dB)")
+        fold_rows[f"{path}_{dt}"] = dict(
+            shape=[list(fr.shape), list(w_op.shape)], snr_db=s_,
+            max_abs_err=err, ms=t_k, plain_ms=t_p, tflops=tflops, **bnd,
+            peak=peak_flops(cost["kind"])[1], **yard)
+        del fr, y, yp
+    del rails
+    print("fold products: " + json.dumps(fold_rows))
     if args.kernels:
         for mode in (1, 2, 3):      # frontend at the other modes' geometry
             fe_m = Receiver(mode, device=dev).frontend
@@ -1451,9 +1578,6 @@ def main() -> None:
     kernels[fir_bank.name]["mode_sites"] = mode_sites
 
     # -- 5. wideband paths ----------------------------------------------------
-    wide_fs = WB_MULT * cfg.rf_fs
-    offs = [int((k - (WB_STATIONS - 1) / 2) * 300_000)
-            for k in range(WB_STATIONS)]
     stations = [dict(offset_hz=offs[k], ps_name=f"WB64-{k:03d}"[:8],
                      pi=0x1000 + k, pty=4, tone_left=400.0 + 200 * j,
                      tone_right=1500.0) for j, k in enumerate(WB_SLOTS)]
@@ -1488,6 +1612,8 @@ def main() -> None:
             b.record()
             b.synchronize()
             seg_t.append(a.elapsed_time(b))
+            if len(seg_t) == 1:     # the carried state after segment 0
+                state0 = map_state((bs, fs_), lambda t: t.clone())
             if not torch.isfinite(out.left).all():
                 fail(f"{path}: non-finite audio")
             bits.append(out.rds_bits)
@@ -1497,7 +1623,7 @@ def main() -> None:
         kept = dict(left=torch.cat([r[0] for r in rails], -1).cpu(),
                     right=torch.cat([r[1] for r in rails], -1).cpu(),
                     bits=torch.cat(bits, 1).cpu(),
-                    nbits=torch.cat(nbits, 1).cpu())
+                    nbits=torch.cat(nbits, 1).cpu(), state0=state0)
         bits, nbits = kept["bits"].numpy(), kept["nbits"].numpy()
         for st in stations:
             k = offs.index(st["offset_hz"])
@@ -1519,6 +1645,7 @@ def main() -> None:
             warm.append(marks[0].elapsed_time(marks[2]))
             h2d.append(marks[0].elapsed_time(marks[1]))
         med = statistics.median(warm)
+        kept["warm_ms"] = med
         rt = radio_s / (med / 1e3)
         print(f"{path} wideband segment ({WB_STATIONS} st x {BLOCKS} blk, "
               f"H2D of {wseg / 1e6:.1f} MB included): first "
@@ -1536,7 +1663,7 @@ def main() -> None:
                             med - statistics.median(h2d))
         return kept
 
-    ch = Channelizer(cfg, wide_fs, offs, device=dev)
+    ch = wb_fe["two_stage", "f32"]
     if not (ch.fold_static and ch.fold_R == 16 and ch.fold_J == 323):
         fail(f"unexpected channelizer geometry (static {ch.fold_static}, "
              f"R {ch.fold_R}, J {ch.fold_J})")
@@ -1556,13 +1683,97 @@ def main() -> None:
         fail("the card's channelizer disagrees with the CPU run")
     del ch_cpu, u8_card, u8_cpu, diff
 
-    wf = make_wideband_frontend(cfg, wide_fs, offs, device=dev)
-    if not isinstance(wf, FusedWidebandFrontend):
-        fail("make_wideband_frontend did not pick the fused frontend")
+    wf = wb_fe["fused", "f32"]
     print(f"fused frontend: lo {wf.lo}, R {wf.r_n}, J {wf.j_w}, weights "
           f"{tuple(wf.w.shape)}")
     wb_ref["fused"] = run_wideband("fused", wf,
                                    (fir_bank.name, fir_decimate.name))
+
+    # the same capture at the other precisions: PS/PI on the 3 stations
+    # (the gate); the fused demod of the real stations against the f32
+    # run's (> 35 dB at bf16, > 45 at bf16x2: the JAX package's bounds);
+    # the two-stage u8 against the f32 run's (bytes that differ, printed);
+    # RDS bits of segments 1-2 from the f32 run's carried state after
+    # segment 0 (the states are f32 at every precision); warm segments
+    # beside the f32 run's
+    real_k = [offs.index(st["offset_hz"]) for st in stations]
+
+    def frontend_out(fe_):
+        """The frontend alone over the 3 segments: the fused demod or the
+        two-stage u8 of every station, on the host."""
+        st_, outs_ = fe_.init_state(), []
+        for seg in wsegs:
+            rails_ = u8_to_rails(torch.from_numpy(seg).to(dev))
+            if isinstance(fe_, FusedWidebandFrontend):
+                o_, st_ = fe_(*rails_, st_)
+            else:
+                o_, st_ = fe_.call_u8(*rails_, st_)
+            outs_.append(o_.cpu())
+        return torch.cat(outs_, -1)
+
+    wb_prec = {}
+    for path, needed in (("two_stage", (chan_epilogue.name,
+                                        frontend_fused.name, fir_bank.name,
+                                        fir_decimate.name)),
+                         ("fused", (fir_bank.name, fir_decimate.name))):
+        ref_out = frontend_out(wb_fe[path, "f32"])
+        for dt in ("bf16", "bf16x2"):
+            if (path, dt) not in wb_fe:
+                continue
+            fe_p = wb_fe[path, dt]
+            kept_p = run_wideband(f"{path}_{dt}", fe_p, needed)
+            out_p = frontend_out(fe_p)
+            row = dict(warm_ms=kept_p["warm_ms"],
+                       warm_ms_f32=wb_ref[path]["warm_ms"])
+            if path == "fused":
+                row["demod_snr_db"] = [snr_db(ref_out[k], out_p[k])
+                                       for k in real_k]
+                print(f"{path}_{dt} demod of stations {real_k} against the "
+                      f"f32 run: " + ", ".join(
+                          f"{v:.1f}" for v in row["demod_snr_db"]) + " dB")
+                if min(row["demod_snr_db"]) <= (35.0 if dt == "bf16"
+                                                else 45.0):
+                    fail(f"the {dt} fused demod is too far from the f32 "
+                         "run's")
+            else:
+                diff = (out_p.int() - ref_out.int()).abs()
+                hist = torch.bincount(diff.flatten(), minlength=3)
+                row.update(bytes_differing=(diff != 0).float().mean().item(),
+                           lsb_hist={str(i): int(v) for i, v in
+                                     enumerate(hist.tolist()) if v},
+                           real_bytes_differing=(
+                               diff[real_k] != 0).float().mean().item())
+                print(f"{path}_{dt} u8 against the f32 run ({tuple(diff.shape)}"
+                      f"): {row['bytes_differing']:.3e} of bytes differ "
+                      f"({row['real_bytes_differing']:.3e} on the real "
+                      f"stations), bytes by LSB of difference "
+                      f"{row['lsb_hist']}")
+            # RDS bits from the f32 run's carried state after segment 0
+            bs, fs_ = map_state(wb_ref[path]["state0"], lambda t: t.clone())
+            bits_p, nb_p = [], []
+            for seg in wsegs[1:]:
+                bs, o_, fs_ = wbank.run_wideband_u8(
+                    bs, fe_p, torch.from_numpy(seg).to(dev), fs_)
+                bits_p.append(o_.rds_bits.cpu())
+                nb_p.append(o_.rds_nbits.cpu())
+            bits_p, nb_p = torch.cat(bits_p, 1), torch.cat(nb_p, 1)
+            ref_bits = wb_ref[path]["bits"][:, -bits_p.shape[1]:]
+            ref_nb = wb_ref[path]["nbits"][:, -nb_p.shape[1]:]
+            nb_same = torch.equal(nb_p[real_k], ref_nb[real_k])
+            bits_diff = sum(
+                int((bits_p[k, b, :nb_p[k, b]]
+                     != ref_bits[k, b, :nb_p[k, b]]).sum())
+                for k in real_k for b in range(nb_p.shape[1])) if nb_same \
+                else None
+            row.update(rds_nbits_equal=nb_same, rds_bits_differing=bits_diff)
+            print(f"{path}_{dt} RDS bits of segments 1-{SEGMENTS - 1} from "
+                  f"the f32 run's carried state: bit counts equal {nb_same}, "
+                  f"{bits_diff} of "
+                  f"{int(ref_nb[real_k].sum())} bits of the real stations "
+                  f"differ; warm segment {kept_p['warm_ms']:.3f} ms against "
+                  f"f32 {wb_ref[path]['warm_ms']:.3f} ms")
+            wb_prec[f"{path}_{dt}"] = row
+    print("wideband precisions: " + json.dumps(wb_prec))
     del wbank
 
     # -- 6. the pipe CLI, in a subprocess, at its defaults --------------------
@@ -1753,6 +1964,25 @@ def main() -> None:
         tot_b = next(ln for ln in lines_b if ln.startswith("total:")).split()
         print(f"wideband CLI --pipeline 4: PCM byte-identical; {tot_b[4]} ms "
               f"per block, {tot_b[6]} real time")
+
+        lines_f, pcm_f = run_wb("--wb-fir bf16", ["--wb-fir", "bf16"], cap,
+                                os.path.join(tmp, "f"))
+        for k, ps_name in real.items():
+            if f"ch{k} ps: {ps_name}" not in lines_f:
+                fail(f"the --wb-fir bf16 CLI did not print station {k}'s PS")
+        if any(len(p) != n_pcm for p in pcm_f):
+            fail("the --wb-fir bf16 CLI's PCM files are not "
+                 f"{n_pcm} bytes each")
+        pcm_snr = [snr_db(*(torch.from_numpy(np.frombuffer(
+            p, "<i2").astype(np.float64)) for p in (pcm_a[k], pcm_f[k])))
+            for k in sorted(real)]
+        tot_f = next(ln for ln in lines_f if ln.startswith("total:")).split()
+        print(f"wideband CLI --wb-fir bf16 on {card}: PS of stations "
+              f"{sorted(real)} decoded, {WB_STATIONS} PCM files of {n_pcm} "
+              f"bytes, the real stations' PCM against the f32 run's "
+              + ", ".join(f"{v:.1f}" for v in pcm_snr) + f" dB; "
+              f"{tot_f[4]} ms per block, {tot_f[6]} real time (f32 run: "
+              f"{tot[4]} ms, {tot[6]})")
 
         # retune station 0 (an empty slot) onto slot 32's transmitter at
         # segment 1. PS needs ~30 blocks from a cold framer, so this run

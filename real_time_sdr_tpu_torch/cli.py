@@ -25,8 +25,10 @@ copies back into pinned memory. Up to ``--pipeline`` groups stay in flight; a
 drain waits once per group on a CUDA event, then writes the PCM and feeds
 the RDS framer. The wideband loop is the same with one (S, ...) PCM tensor
 and one fetch per segment; ``--retune SEG:STATION:HZ`` re-points a station
-of the fused frontend between segments, and ``--checkpoint`` resumes onto
-the grid the saved state was built on (its ``.rds.json`` sidecar names it).
+of the fused frontend between segments, ``--checkpoint`` resumes onto the
+grid the saved state was built on (its ``.rds.json`` sidecar names it),
+and ``--wb-fir {f32,bf16,bf16x2}`` sets the wideband frontend's precision
+(the JAX package reads it from ``RTSDR_WB_FIR`` / ``RTSDR_CHAN_FIR``).
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ from collections import deque
 import numpy as np
 
 # flags that only mean something together with --stations
-WIDEBAND_ONLY_FLAGS = ("wide_fs", "output_dir", "retune")
+WIDEBAND_ONLY_FLAGS = ("wide_fs", "output_dir", "retune", "wb_fir")
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -132,6 +134,14 @@ def make_parser() -> argparse.ArgumentParser:
                          "re-point station STATION to offset HZ (fused "
                          "wideband frontend only; other stations' DSP state "
                          "is untouched). Repeatable")
+    # the port's counterpart of the JAX package's RTSDR_WB_FIR /
+    # RTSDR_CHAN_FIR environment variables
+    ap.add_argument("--wb-fir", choices=("f32", "bf16", "bf16x2"),
+                    default=None,
+                    help="precision of the wideband frontend's fold product "
+                         "(default f32; bf16x2 splits the taps hi + lo at "
+                         "twice the operations; the two-stage frontend "
+                         "takes f32 or bf16)")
     return ap
 
 
@@ -340,7 +350,15 @@ def run_wideband(args, torch, device, rx, cfg) -> int:
         print(f"error: --wide-fs {wide_fs} must be an integer multiple of "
               f"the mode RF rate {cfg.rf_fs}", file=sys.stderr)
         return 2
-    fe = make_wideband_frontend(cfg, wide_fs, offsets, device=device)
+    wb_fir = args.wb_fir or "f32"
+    if (wb_fir == "bf16x2"
+            and not FusedWidebandFrontend.eligible(cfg, wide_fs, offsets)):
+        print("error: --wb-fir bf16x2 needs the fused wideband frontend; "
+              "this grid takes the two-stage path, which computes in f32 "
+              "or bf16", file=sys.stderr)
+        return 2
+    fe = make_wideband_frontend(cfg, wide_fs, offsets, compute_dtype=wb_fir,
+                                device=device)
     fused = isinstance(fe, FusedWidebandFrontend)
     print(f"wideband frontend: "
           f"{'fused one-matmul' if fused else 'two-stage uint8'} path",

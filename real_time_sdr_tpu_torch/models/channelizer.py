@@ -31,8 +31,16 @@ i/q rails are framed once, (c, 2J), and hit one f32 matmul against the
   tables indexed by ``pos``.
 
 ``pos`` stays a device int32 tensor: tables are indexed with it on the
-device, so a segment never waits on the host. The computation is float32
-only (TF32 off); the JAX package's bf16 channelizer FIR is not ported.
+device, so a segment never waits on the host.
+
+Precision (``compute_dtype``, the JAX package's ``RTSDR_CHAN_FIR``):
+"f32" (the default; TF32 off) or "bf16". At bf16 the fold product takes
+bf16 frames and bf16 weights and returns an f32 result (``fold_product``:
+on the card one tensor-core GEMM with f32 accumulation), and the
+mix-then-filter form rounds its mixed rails and taps to bf16
+(``PolyFIR(compute_dtype="bf16")``). The epilogue, the tables and every
+state leaf stay f32 / int32; the carried raw-rail tails are the f32
+inputs.
 """
 
 from __future__ import annotations
@@ -53,11 +61,17 @@ from real_time_sdr_tpu_torch.ops.cuda.chan_epilogue import (chan_epilogue,
                                                             rotate_stations)
 from real_time_sdr_tpu_torch.ops.fir import PolyFIR, make_bank
 
-__all__ = ["ChannelizerState", "Channelizer", "frame_rail", "lcm_of"]
+__all__ = ["ChannelizerState", "Channelizer", "frame_rail", "lcm_of",
+           "fold_product", "fold_product_plain", "cat_k"]
 
 TONE_LCM_MAX = 65536   # periodic tone tables up to this many samples
 FOLD_R = 8             # outputs per fold frame before lcm promotion
 FOLD_STATIC_MAX = 32   # largest output-rate tone lcm folded statically
+CHAN_DTYPES = ("f32", "bf16")
+# a bf16 product's depth K is zero-padded to a multiple of this: 16-byte
+# operand rows, without which the library's GEMM takes a slower kernel
+# (2.6-3.2x at the 64-station shapes, PERF.md)
+BF16_K_ALIGN = 8
 
 
 class ChannelizerState(NamedTuple):
@@ -88,6 +102,39 @@ def frame_rail(xx: torch.Tensor, c_frames: int, stride: int,
     return xx[:need].unfold(0, j_w, stride)
 
 
+def fold_product(fr: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The fold matmul (c, K) @ (K, N) with a float32 result. f32 operands:
+    one f32 matmul. bf16 operands: every product of two bf16 values is
+    exact in f32 and the sums run in f32, as the JAX package's einsum with
+    ``preferred_element_type=float32``; on the card that is one bf16
+    tensor-core GEMM with an f32 output, elsewhere ``fold_product_plain``.
+    (``fr @ w`` of two bf16 tensors would round every output to bf16.)"""
+    if w.dtype != torch.bfloat16:
+        return fr @ w
+    if fr.is_cuda:
+        return torch.mm(fr, w, out_dtype=torch.float32)
+    return fold_product_plain(fr, w)
+
+
+def fold_product_plain(fr: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The plain version of a bf16 ``fold_product``: both operands upcast
+    to f32 (exact), one f32 matmul."""
+    return fr.float() @ w.float()
+
+
+def cat_k(parts: list[torch.Tensor], dim: int) -> torch.Tensor:
+    """``torch.cat(parts, dim)`` of a product's operand along its depth K
+    (the frames' last dim, the weights' first); a bf16 operand's K is
+    zero-padded to a multiple of BF16_K_ALIGN in the same copy (the zeros
+    add exact zero products)."""
+    pad = -sum(p.shape[dim] for p in parts) % BF16_K_ALIGN
+    if parts[0].dtype == torch.bfloat16 and pad:
+        shape = list(parts[0].shape)
+        shape[dim] = pad
+        parts = [*parts, parts[0].new_zeros(shape)]
+    return torch.cat(parts, dim=dim)
+
+
 def _check_rails(i_wide: torch.Tensor, q_wide: torch.Tensor,
                  dtype: torch.dtype = torch.float32) -> None:
     if i_wide.ndim != 1 or q_wide.shape != i_wide.shape:
@@ -105,7 +152,8 @@ class Channelizer(nn.Module):
     offsets_hz are integer station offsets from the capture center.
     Tables and weights are buffers built on ``device``: the card unless the
     caller names another (``None`` is ``"cuda"`` and raises
-    ``RuntimeError`` without one, as ``Receiver``).
+    ``RuntimeError`` without one, as ``Receiver``). ``compute_dtype``:
+    "f32" or "bf16" (module docstring).
 
         ch = Channelizer(cfg, 8 * cfg.rf_fs, offsets)
         u8, cstate = ch.call_u8(i_wide, q_wide, ch.init_state())
@@ -113,10 +161,14 @@ class Channelizer(nn.Module):
 
     def __init__(self, cfg: ReceiverConfig, wide_fs: int,
                  offsets_hz: list[int], taps_factor: int = 2,
-                 fold: bool = True,
+                 fold: bool = True, compute_dtype: str = "f32",
                  device: str | torch.device | None = None):
         super().__init__()
         dev = resolve_device(device)
+        if compute_dtype not in CHAN_DTYPES:
+            raise ValueError(f"the channelizer computes in one of "
+                             f"{CHAN_DTYPES}, got {compute_dtype!r}")
+        self.compute_dtype = compute_dtype
         if wide_fs % cfg.rf_fs:
             raise ValueError(f"wide_fs {wide_fs} is not a multiple of the "
                              f"station rate {cfg.rf_fs}")
@@ -129,7 +181,8 @@ class Channelizer(nn.Module):
         taps = cfg.rf_taps * taps_factor + 1
         h = filters.design_lpf(self.wide_fs, cfg.rf_fs / 2 * 0.8, taps)
         self._h64 = np.asarray(h, dtype=np.float64)
-        self.fir = PolyFIR(self._h64, up=1, down=self.decim)
+        self.fir = PolyFIR(self._h64, up=1, down=self.decim,
+                           compute_dtype=compute_dtype)
         self.bank = make_bank([self.fir])
         self._tone_cache: dict[tuple, tuple] = {}
         p = self.wide_fs
@@ -201,7 +254,9 @@ class Channelizer(nn.Module):
                 w2[:, cim] = wim * uc_r[:, r] + wre * us_r[:, r]
         self.fold_R, self.fold_J = r_n, j_w
         self.fold_tail = k_taps - 1
-        self.register_buffer("fold_W", torch.tensor(w2.astype(np.float32)))
+        w32 = torch.tensor(w2.astype(np.float32))
+        self.register_buffer("fold_W", cat_k([w32.to(torch.bfloat16)], 0)
+                             if self.compute_dtype == "bf16" else w32)
         if self.fold_static:
             # residual per-segment rotation, one (S,) row per pos
             self.register_buffer("fold_pc", torch.tensor(
@@ -233,8 +288,9 @@ class Channelizer(nn.Module):
             if hasattr(self, name):
                 setattr(sub, name, getattr(self, name)[:, stations].clone())
         if self.fold:
-            w4 = self.fold_W.reshape(2 * self.fold_J, self.fold_R, 2, s_ch)
-            sub.fold_W = w4[..., stations].reshape(2 * self.fold_J, -1).clone()
+            rows = self.fold_W.shape[0]
+            w4 = self.fold_W.reshape(rows, self.fold_R, 2, s_ch)
+            sub.fold_W = w4[..., stations].reshape(rows, -1).clone()
         return sub
 
     @property
@@ -285,19 +341,17 @@ class Channelizer(nn.Module):
     def _fold_call(self, i_wide: torch.Tensor, q_wide: torch.Tensor,
                    state: ChannelizerState, emit: str):
         n = i_wide.shape[-1]
-        d, r_n, j_w = self.decim, self.fold_R, self.fold_J
+        d, r_n = self.decim, self.fold_R
         if n % d:
             raise ValueError(f"the folded channelizer needs segments of a "
                              f"multiple of {d} samples, got {n}")
         n_out = n // d
-        stride = r_n * d
         c_frames = -(-n_out // r_n)
         s_ch = len(self.offsets)
         xi = torch.cat([state.i_tails[0], i_wide])
         xq = torch.cat([state.q_tails[0], q_wide])
-        fr = torch.cat([frame_rail(xi, c_frames, stride, j_w),
-                        frame_rail(xq, c_frames, stride, j_w)], dim=-1)
-        y = fr @ self.fold_W                          # (c, R*2S)
+        y = fold_product(self.fold_frames(xi, xq, c_frames),
+                         self.fold_W)                 # (c, R*2S) f32
         lo = self.fold_L
         pos = (state.pos % lo).reshape(1)
         if self.fold_static:
@@ -329,6 +383,36 @@ class Channelizer(nn.Module):
             return out, new
         return (i_ds, q_ds), new
 
+    def fold_frames(self, xi: torch.Tensor, xq: torch.Tensor,
+                    c_frames: int) -> torch.Tensor:
+        """The fold product's left operand: (c_frames, 2J) windows of the
+        tail-prefixed f32 rails, in the weights' dtype (bf16 at bf16, K
+        zero-padded as the weights' rows are)."""
+        dt = self.fold_W.dtype
+        return cat_k([frame_rail(x.to(dt), c_frames, self.fold_R * self.decim,
+                                 self.fold_J) for x in (xi, xq)], -1)
+
+    def fold_cost(self, n: int) -> dict:
+        """Work of the fold product on an n-sample segment (``ops/fir.py``
+        has the dict's keys): the two rails and their tails read once
+        (2-byte elements at bf16), the weights once, the (c, R*2S) f32
+        result written once; 2 x M x K x N for (c_frames, 2J) @ (2J,
+        R*2S) (a bf16 product's zero padding of K, < BF16_K_ALIGN rows,
+        is no work of the function). The ``chan_epilogue`` launch that
+        reads the result counts in ``ops.cuda.chan_epilogue.epilogue_cost``.
+        """
+        if not self.fold:
+            raise ValueError("only the folded channelizer has a fold product")
+        c_frames = -(-(n // self.decim) // self.fold_R)
+        k_dim, n_dim = 2 * self.fold_J, self.fold_R * 2 * len(self.offsets)
+        el = self.fold_W.element_size()
+        w_bytes = el * k_dim * n_dim
+        return {"kind": f"chan_fold_{self.compute_dtype}",
+                "flops": 2 * c_frames * k_dim * n_dim,
+                "bytes": 2 * el * (n + self.fold_tail) + w_bytes
+                + 4 * c_frames * n_dim,
+                "w_bytes": w_bytes, "dims": (c_frames, k_dim, n_dim)}
+
     @torch.no_grad()
     def forward(self, i_wide: torch.Tensor, q_wide: torch.Tensor,
                 state: ChannelizerState):
@@ -353,7 +437,8 @@ class Channelizer(nn.Module):
         # (i + jq) * (c + j s_): downshift by +offset
         mi = i_wide[None, :] * c - q_wide[None, :] * s_
         mq = q_wide[None, :] * c + i_wide[None, :] * s_
-        # both rails through ONE FIR-bank call (rows = 2S)
+        # both rails through ONE FIR-bank call (rows = 2S); a bf16 bank
+        # rounds them to bf16 (the JAX package's bf16 mixed rails)
         s_ch = len(self.offsets)
         (ds,), tails = self.bank(torch.cat([mi, mq]),
                                  torch.cat([state.i_tails, state.q_tails]))

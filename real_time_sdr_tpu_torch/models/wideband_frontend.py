@@ -14,8 +14,15 @@ with Dt = D * rf_decim. On a periodic station grid the IF-rate tone
 static-folds into the weights as in the channelizer (R = lcm(8, lo)), so
 only a per-segment (S,) rotation remains, and the FM discriminator runs on
 the matmul's result: demod comes out directly, with no u8 hop and no
-per-station frontend. The matmul stays ``torch.matmul`` in float32 (no
-Pallas kernel did it); bf16/bf16x2 weights are not ported.
+per-station frontend. The matmul is a library call
+(``channelizer.fold_product``; no Pallas kernel did it).
+
+Precision (``compute_dtype``, the JAX package's ``RTSDR_WB_FIR``): "f32"
+(the default; TF32 off), "bf16" (bf16 rails and weights, one tensor-core
+product with an f32 result) or "bf16x2" (the weights split hi + lo, w_hi =
+bf16(w), w_lo = bf16(w - w_hi): two bf16 products summed in f32, computed
+as ONE product [fr | fr] @ [w_hi ; w_lo], at twice the operations). The
+rotation tables, the discriminator and every state leaf stay f32 / int32.
 
 ``make_wideband_frontend`` is the one policy point: the fused frontend on
 every eligible grid (every real raster), else the two-stage Channelizer.
@@ -37,28 +44,34 @@ from real_time_sdr_tpu_torch.config import ReceiverConfig
 from real_time_sdr_tpu_torch.device import resolve_device
 from real_time_sdr_tpu_torch.ops import filters
 from real_time_sdr_tpu_torch.models.channelizer import (FOLD_R, Channelizer,
-                                                        _check_rails,
+                                                        _check_rails, cat_k,
+                                                        fold_product,
                                                         frame_rail, lcm_of)
 from real_time_sdr_tpu_torch.ops.cuda.chan_epilogue import rotate_stations
 
 __all__ = ["make_wideband_frontend", "FusedWidebandState", "u8_to_rails",
-           "FusedWidebandFrontend", "WB_LCM_MAX"]
+           "FusedWidebandFrontend", "WB_LCM_MAX", "WB_DTYPES"]
 
 WB_LCM_MAX = 32  # largest IF-rate tone lcm the fused fold accepts
+WB_DTYPES = ("f32", "bf16", "bf16x2")
 
 
 def make_wideband_frontend(cfg: ReceiverConfig, wide_fs: int,
                            offsets_hz: list[int], taps_factor: int = 2,
+                           compute_dtype: str = "f32",
                            device: str | torch.device | None = None):
     """The fused one-matmul frontend when the station grid is eligible
     (every real raster is), else the two-stage Channelizer + uint8
-    receiver path, on ``device``: the card unless the caller names another
+    receiver path, at ``compute_dtype`` (the Channelizer takes "f32" and
+    "bf16" only), on ``device``: the card unless the caller names another
     (``None`` is ``"cuda"`` and raises without one, as ``Receiver``)."""
     if FusedWidebandFrontend.eligible(cfg, wide_fs, offsets_hz):
         return FusedWidebandFrontend(cfg, wide_fs, offsets_hz,
-                                     taps_factor=taps_factor, device=device)
+                                     taps_factor=taps_factor,
+                                     compute_dtype=compute_dtype,
+                                     device=device)
     return Channelizer(cfg, wide_fs, offsets_hz, taps_factor=taps_factor,
-                       device=device)
+                       compute_dtype=compute_dtype, device=device)
 
 
 class FusedWidebandState(NamedTuple):
@@ -81,14 +94,17 @@ def u8_to_rails(raw_u8: torch.Tensor):
 
 
 class FusedWidebandFrontend(nn.Module):
-    """Wideband rails -> per-station IF-rate FM demod, one f32 matmul.
+    """Wideband rails -> per-station IF-rate FM demod, one matmul.
 
     Needs a periodic station grid whose IF-rate tone lcm is at most
     ``WB_LCM_MAX`` (``eligible``); other grids take Channelizer + the u8
-    receiver path. The weights (2J, R*2S) and the rotation tables (lo, S)
-    are buffers built on ``device``: the card unless the caller names
-    another (``None`` is ``"cuda"`` and raises ``RuntimeError`` without
-    one). ``retune`` rewrites one station's columns in place.
+    receiver path. The weights (2J, R*2S; bf16x2: 4J rows, hi above lo;
+    the bf16 forms' rows zero-padded to a multiple of 8) and the rotation
+    tables (lo, S) are buffers built on ``device``: the card unless the
+    caller names another (``None`` is ``"cuda"`` and raises
+    ``RuntimeError`` without one). ``compute_dtype``: one of ``WB_DTYPES``
+    (module docstring). ``retune`` rewrites one station's columns in
+    place.
     """
 
     @staticmethod
@@ -119,9 +135,15 @@ class FusedWidebandFrontend(nn.Module):
 
     def __init__(self, cfg: ReceiverConfig, wide_fs: int,
                  offsets_hz: list[int], taps_factor: int = 2,
+                 compute_dtype: str = "f32",
                  device: str | torch.device | None = None):
         super().__init__()
         dev = resolve_device(device)
+        if compute_dtype not in WB_DTYPES:
+            raise ValueError(f"the fused frontend computes in one of "
+                             f"{WB_DTYPES}, got {compute_dtype!r}")
+        self.compute_dtype = compute_dtype
+        self.passes = 2 if compute_dtype == "bf16x2" else 1
         if wide_fs % cfg.rf_fs:
             raise ValueError(f"wide_fs {wide_fs} is not a multiple of the "
                              f"station rate {cfg.rf_fs}")
@@ -196,9 +218,32 @@ class FusedWidebandFrontend(nn.Module):
                 w2[:, base + si] = a_cols[:, r]
                 w2[:, base + s_ch + si] = b_cols[:, r]
         # buffers that own their memory (torch.tensor copies)
-        self.register_buffer("w", torch.tensor(w2.astype(np.float32)))
+        self.register_buffer("w", self._weight_operand(w2))
         self.register_buffer("pc", torch.tensor(pc.astype(np.float32)))
         self.register_buffer("ps", torch.tensor(ps.astype(np.float32)))
+
+    def _weight_operand(self, cols: np.ndarray) -> torch.Tensor:
+        """Weight columns (2J, m) from the host float64 build -> the
+        product's operand in the compute precision, on the CPU: f32; bf16
+        of the f32 values; bf16x2 [w_hi ; w_lo] (4J, m), both halves from
+        the f32 values (the JAX package's split). The bf16 forms' rows are
+        zero-padded as ``channelizer.cat_k`` pads K."""
+        w = torch.tensor(cols.astype(np.float32))
+        if self.compute_dtype == "f32":
+            return w
+        hi = w.to(torch.bfloat16)
+        if self.compute_dtype == "bf16":
+            return cat_k([hi], 0)
+        return cat_k([hi, (w - hi.float()).to(torch.bfloat16)], 0)
+
+    def double(self):
+        """The float64 oracle form of the f32 frontend (weights, tables,
+        rails and state in float64). Only the f32 frontend has it: a bf16
+        frontend's rounding is what it computes."""
+        if self.compute_dtype != "f32":
+            raise ValueError(f"a {self.compute_dtype} frontend has no "
+                             "float64 form; build an f32 one")
+        return super().double()
 
     def station_subset(self, stations: slice) -> "FusedWidebandFrontend":
         """A copy that computes only ``stations`` (a slice of the station
@@ -211,16 +256,19 @@ class FusedWidebandFrontend(nn.Module):
         sub.offsets = self.offsets[stations]
         if not sub.offsets:
             raise ValueError(f"{stations} selects no station of {s_ch}")
-        w4 = self.w.reshape(2 * self.j_w, self.r_n, 2, s_ch)
-        sub.w = w4[..., stations].reshape(2 * self.j_w, -1).clone()
+        rows = self.w.shape[0]
+        w4 = self.w.reshape(rows, self.r_n, 2, s_ch)
+        sub.w = w4[..., stations].reshape(rows, -1).clone()
         sub.pc = self.pc[:, stations].clone()
         sub.ps = self.ps[:, stations].clone()
         return sub
 
     def retune(self, station: int, offset_hz: int) -> None:
         """Re-point one station at a new offset: its columns are rebuilt on
-        the host and copied into the buffers on the current stream, so work
-        queued before the retune still reads the old weights.
+        the host (float64, then the compute precision as at construction:
+        bf16x2's lo half from the f32 columns, never from the bf16 buffer)
+        and copied into the buffers on the current stream, so work queued
+        before the retune still reads the old weights.
 
         The new offset's IF-rate tone period must divide ``lo`` (true for
         any retune within the raster the frontend was built on)."""
@@ -239,17 +287,22 @@ class FusedWidebandFrontend(nn.Module):
         cols = np.concatenate([np.arange(self.r_n) * 2 * s_ch + station,
                                np.arange(self.r_n) * 2 * s_ch + s_ch
                                + station])
-        new_cols = np.concatenate([a_cols, b_cols], axis=1)
+        new_cols = self._weight_operand(np.concatenate([a_cols, b_cols],
+                                                       axis=1))
         dev = self.w.device
         for buf, idx, val in ((self.w, cols, new_cols),
-                              (self.pc, [station], pc_col[:, None]),
-                              (self.ps, [station], ps_col[:, None])):
-            buf.index_copy_(1, torch.tensor(idx, device=dev), torch.from_numpy(
-                val.astype(np.float32)).to(dev, buf.dtype))
+                              (self.pc, [station], torch.from_numpy(
+                                  pc_col[:, None].astype(np.float32))),
+                              (self.ps, [station], torch.from_numpy(
+                                  ps_col[:, None].astype(np.float32)))):
+            buf.index_copy_(1, torch.tensor(idx, device=dev),
+                            val.to(dev, buf.dtype))
         self.offsets[station] = f
 
     def init_state(self) -> FusedWidebandState:
-        s, dev, dt = len(self.offsets), self.w.device, self.w.dtype
+        # the rails' dtype is the tables': float32 at every precision,
+        # float64 after .double()
+        s, dev, dt = len(self.offsets), self.pc.device, self.pc.dtype
         z = torch.zeros((self.tail_len,), dtype=dt, device=dev)
         return FusedWidebandState(
             z, z.clone(), torch.zeros((s,), dtype=dt, device=dev),
@@ -265,32 +318,47 @@ class FusedWidebandFrontend(nn.Module):
 
     def cost(self, n: int) -> dict:
         """Work on an n-sample wideband segment (``ops/fir.py`` has the
-        dict's keys): the two f32 rails and their tails read once, the
-        weights once per launch, the demod written and transposed once,
-        and the fold SGEMM (a library call) as the port launches it:
-        2 x M x N x K for (c_frames, 2J) @ (2J, R*2S)."""
+        dict's keys), the JAX package's count: the two rails and their
+        tails read once (2-byte elements at bf16 and bf16x2), the weights
+        once per launch, the f32 demod written and transposed once, and
+        the fold product (a library call): 2 x M x N x K for (c_frames, 2J)
+        @ (2J, R*2S); bf16x2 doubles K (the bf16 forms' zero padding of K,
+        < 8 rows, is no work of the function)."""
         n_if, _, c_frames = self._plan(n)
         s_ch = len(self.offsets)
-        k_dim, n_dim = 2 * self.j_w, self.r_n * 2 * s_ch
-        w_bytes = 4 * k_dim * n_dim
-        return {"kind": "fused_wb_f32", "flops": 2 * c_frames * k_dim * n_dim,
-                "bytes": 2 * 4 * (n + self.tail_len) + w_bytes
+        k_dim, n_dim = self.passes * 2 * self.j_w, self.r_n * 2 * s_ch
+        el = 4 if self.compute_dtype == "f32" else 2
+        w_bytes = el * k_dim * n_dim
+        return {"kind": f"fused_wb_{self.compute_dtype}",
+                "flops": 2 * c_frames * k_dim * n_dim,
+                "bytes": 2 * el * (n + self.tail_len) + w_bytes
                 + 4 * s_ch * n_if * 2,
                 "w_bytes": w_bytes, "dims": (c_frames, k_dim, n_dim)}
+
+    def frames(self, xi: torch.Tensor, xq: torch.Tensor) -> torch.Tensor:
+        """The fold product's left operand from the tail-prefixed rails
+        (L,): (c_frames, 2J) windows of both, in bf16 at bf16 and bf16x2
+        (bf16x2 repeats them, [fr | fr], against [w_hi ; w_lo]; K
+        zero-padded as the weights' rows are). u8 ingest loses nothing to
+        the rounding: (x - 128) / 128 is exact in bf16, so on that path
+        only the taps round."""
+        _, stride, c_frames = self._plan(xi.shape[0] - self.tail_len)
+        if self.compute_dtype != "f32":
+            xi, xq = xi.to(torch.bfloat16), xq.to(torch.bfloat16)
+        fr = [frame_rail(x, c_frames, stride, self.j_w) for x in (xi, xq)]
+        return cat_k(fr * self.passes, -1)
 
     def core(self, w_cols, pc_t, ps_t, i_tail, q_tail, prev_i, prev_q,
              pos, i_wide: torch.Tensor, q_wide: torch.Tensor):
         """The fused-frontend math on any station-column subset:
         w_cols (2J, R*2*s_l), pc_t/ps_t (lo, s_l), prev_i/prev_q (s_l,).
         Returns (demod (s_l, n_if), last_i, last_q)."""
-        n_if, stride, c_frames = self._plan(i_wide.shape[-1])
+        n_if = self._plan(i_wide.shape[-1])[0]
         r_n = self.r_n
         s_l = w_cols.shape[-1] // (2 * r_n)
-        xi = torch.cat([i_tail, i_wide])
-        xq = torch.cat([q_tail, q_wide])
-        fr = torch.cat([frame_rail(xi, c_frames, stride, self.j_w),
-                        frame_rail(xq, c_frames, stride, self.j_w)], dim=-1)
-        y = fr @ w_cols                                   # (c, R*2*s_l)
+        y = fold_product(self.frames(torch.cat([i_tail, i_wide]),
+                                     torch.cat([q_tail, q_wide])),
+                         w_cols)                          # (c, R*2*s_l) f32
         # residual per-segment rotation (constant over the segment)
         pos_l = (pos % self.lo).reshape(1)
         pc = pc_t.index_select(0, pos_l)[0]
@@ -313,10 +381,10 @@ class FusedWidebandFrontend(nn.Module):
     @torch.no_grad()
     def forward(self, i_wide: torch.Tensor, q_wide: torch.Tensor,
                 state: FusedWidebandState):
-        """i_wide, q_wide: (N,) at wide_fs, N % (D*rf_decim) == 0, in the
-        weights' dtype (float32; float64 after ``.double()``).
+        """i_wide, q_wide: (N,) at wide_fs, N % (D*rf_decim) == 0, float32
+        at every precision (float64 after ``.double()``).
         Returns (demod (S, N // (D*rf_decim)), new state)."""
-        _check_rails(i_wide, q_wide, self.w.dtype)
+        _check_rails(i_wide, q_wide, self.pc.dtype)
         demod, last_i, last_q = self.core(
             self.w, self.pc, self.ps, state.i_tail, state.q_tail,
             state.prev_i, state.prev_q, state.pos, i_wide, q_wide)

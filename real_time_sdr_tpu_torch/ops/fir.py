@@ -16,6 +16,13 @@ which is what the CUDA FIR-bank kernel computes (ops/cuda/fir_bank.py).
 State contract: the carry holds the last ``T-1`` input samples. A
 single-nonzero-tap filter (the all-pass delay) lowers to a scaled slice.
 
+Precision (``compute_dtype``): "f32", or "bf16" as the JAX package's
+channelizer FIR takes it: the taps and the tail-prefixed input are rounded
+to bf16 and the sums run in f32. The port keeps bf16 values in f32 tensors
+(one product of two bf16 values is exact in f32), so the FIR-bank kernel
+computes a bf16 FIR with its f32 body; the carried tail holds the rounded
+input, as JAX's does.
+
 - ``PolyFIR``: host-side design + plan; calling it runs the plain framed
   matmul (or the delay slice) on any device.
 - ``FIRBank`` / ``make_bank``: an nn.Module holding the taps and weights
@@ -29,9 +36,10 @@ Each has ``cost(n)``: the work of the FUNCTION on an n-sample block of one
 row, whatever computes it, as a dict ``kind``, ``flops``, ``bytes``,
 ``w_bytes``, ``dims`` (``utils/logging.stage_costs`` walks them). FLOPs
 are 2 x outputs x nonzero taps each output multiplies, summed over a
-bank's members; bytes are the f32 input plus its tail read once (one read
-for a whole bank), each output written once, and the taps once per launch
-(``w_bytes``, the share of ``bytes`` a launch over many rows pays once).
+bank's members; bytes are the input plus its tail read once (one read for
+a whole bank), each f32 output written once, and the taps once per launch
+(``w_bytes``, the share of ``bytes`` a launch over many rows pays once);
+at bf16 the input, its tail and the taps count 2 bytes an element.
 """
 
 
@@ -50,6 +58,13 @@ __all__ = ["state_len", "PolyFIR", "FIRBank", "make_bank", "DecimatingFIR",
            "DualPhaseFIR"]
 
 TARGET_FRAME = 128  # outputs per frame of the plain framed matmul (~R)
+FIR_DTYPES = ("f32", "bf16")
+_EL_BYTES = {"f32": 4, "bf16": 2}
+
+
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (nearest even), held as float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
 
 
 def state_len(num_taps: int, up: int = 1) -> int:
@@ -69,16 +84,18 @@ def _nz_phase(h: np.ndarray, up: int) -> np.ndarray:
 
 
 def _fir_cost(kind: str, nz_phase: np.ndarray, up: int, down: int, n: int,
-              tail_len: int, n_filters: int, num_taps: int) -> dict:
-    """The cost dict of ``n_filters`` same-geometry FIRs sharing one f32
-    input (see the module docstring); ``nz_phase`` is summed over them."""
+              tail_len: int, n_filters: int, num_taps: int,
+              el: int = 4) -> dict:
+    """The cost dict of ``n_filters`` same-geometry FIRs sharing one input
+    of ``el``-byte elements (see the module docstring); ``nz_phase`` is
+    summed over them."""
     n_out = n * up // down
     # output r multiplies phase (r*down) % up
     per_phase = np.bincount((np.arange(n_out, dtype=np.int64) * down) % up,
                             minlength=up)
-    w_bytes = 4 * n_filters * num_taps
+    w_bytes = el * n_filters * num_taps
     return {"kind": kind, "flops": 2 * int(per_phase @ nz_phase),
-            "bytes": 4 * (n + tail_len) + 4 * n_filters * n_out + w_bytes,
+            "bytes": el * (n + tail_len) + 4 * n_filters * n_out + w_bytes,
             "w_bytes": w_bytes,
             "dims": (n_out, -(-num_taps // up), n_filters)}
 
@@ -91,12 +108,19 @@ class PolyFIR:
 
     y has N*up//down samples (C++ truncation). Calling runs the plain
     framed matmul; ``make_bank`` binds FIRs to the kernel.
+    ``compute_dtype``: "f32" or "bf16" (module docstring); a single-tap
+    delay has no bf16 form.
     """
 
-    def __init__(self, h: np.ndarray, up: int = 1, down: int = 1):
+    def __init__(self, h: np.ndarray, up: int = 1, down: int = 1,
+                 compute_dtype: str = "f32"):
         h = np.asarray(h, dtype=np.float64)
         if h.ndim != 1:
             raise ValueError(f"taps must be 1-D, got shape {h.shape}")
+        if compute_dtype not in FIR_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {FIR_DTYPES}, "
+                             f"got {compute_dtype!r}")
+        self.compute_dtype = compute_dtype
         self.up = int(up)
         self.down = int(down)
         self.num_taps = K = h.shape[0]
@@ -106,6 +130,9 @@ class PolyFIR:
         self.single_tap = len(nz) == 1 and self.up == 1 and self.down == 1
         self._tap_pos = int(nz[0]) if len(nz) else 0
         self._tap_gain = float(h[self._tap_pos]) if len(nz) else 0.0
+        if self.single_tap and compute_dtype != "f32":
+            raise ValueError("a single-tap (delay) filter lowers to a slice "
+                             "and has no bf16 form")
         g = max(1, round(TARGET_FRAME / self.up))
         R = g * self.up
         rs = np.arange(R, dtype=np.int64)
@@ -127,17 +154,32 @@ class PolyFIR:
     def tail_len(self) -> int:
         return self.T - 1
 
+    def _rounded(self, a: np.ndarray) -> np.ndarray:
+        """float32 values in the compute precision (f32 -> bf16 at bf16, as
+        the JAX package rounds its f32 weights)."""
+        a = a.astype(np.float32)
+        if self.compute_dtype == "bf16":
+            a = _round_bf16(torch.from_numpy(a)).numpy()
+        return a
+
+    def taps32(self) -> np.ndarray:
+        """(K,) float32 taps in the compute precision: the kernel's taps."""
+        return self._rounded(self._h)
+
     def cost(self, n: int) -> dict:
         """Work on an n-sample block of one row (module docstring); the
         all-pass delay is a slice: n read, n written, no operations."""
         if self.single_tap:
             return {"kind": "delay", "flops": 0, "bytes": 8 * n,
                     "w_bytes": 0, "dims": (0, 0, 0)}
-        return _fir_cost("fir_f32", _nz_phase(self._h, self.up), self.up,
-                         self.down, n, self.tail_len, 1, self.num_taps)
+        return _fir_cost(f"fir_{self.compute_dtype}",
+                         _nz_phase(self._h, self.up), self.up, self.down, n,
+                         self.tail_len, 1, self.num_taps,
+                         _EL_BYTES[self.compute_dtype])
 
     def weights(self) -> np.ndarray:
-        """(J, R) float32 polyphase weight matrix of the framed matmul."""
+        """(J, R) float32 polyphase weight matrix of the framed matmul, in
+        the compute precision."""
         if self._w is None:
             gm, T, K, up = self.geometry, self.T, self.num_taps, self.up
             W = np.zeros((gm.J, gm.R), dtype=np.float64)
@@ -146,7 +188,7 @@ class PolyFIR:
                     k = self._p[r] + up * m
                     if k < K:
                         W[T - 1 + self._qr[r] - m, r] = self._h[k]
-            self._w = W.astype(np.float32)
+            self._w = self._rounded(W)
         return self._w
 
     def __call__(self, x: torch.Tensor, tail: torch.Tensor):
@@ -155,6 +197,8 @@ class PolyFIR:
         Returns (y, new_tail) with y: (..., N*up//down)."""
         n = x.shape[-1]
         xx = torch.cat([tail, x.to(tail.dtype)], dim=-1)
+        if self.compute_dtype == "bf16":
+            xx = _round_bf16(xx)
         if self.single_tap:
             # pure delay: y[n] = h[pos] * xx[T-1 + n - pos]
             start = self.T - 1 - self._tap_pos
@@ -171,6 +215,8 @@ def _check_bank(firs: list[PolyFIR]) -> None:
     f0 = firs[0]
     if any(f.geometry != f0.geometry for f in firs):
         raise ValueError("bank filters must share (up, down, num_taps)")
+    if any(f.compute_dtype != f0.compute_dtype for f in firs):
+        raise ValueError("bank filters must share one compute_dtype")
     if f0.single_tap:
         raise ValueError("a single-tap delay lowers to a slice, not a bank")
     if not 1 <= len(firs) <= MAX_NF:
@@ -183,17 +229,20 @@ class FIRBank(nn.Module):
     ``bank(x, tail) -> ([y_0, ..., y_{nf-1}], new_tail)`` with the PolyFIR
     state contract; every leading dim of x is a batch row. Taps and the
     plain version's weights are buffers, so ``.to(device)`` moves them.
+    A bf16 bank rounds its input to bf16 and hands the kernel bf16 taps as
+    f32 values (module docstring).
     """
 
     def __init__(self, firs: list[PolyFIR]):
         super().__init__()
         _check_bank(firs)
         self.geometry = firs[0].geometry
+        self.compute_dtype = firs[0].compute_dtype
         self.nf = len(firs)
         self._tail_len = firs[0].tail_len
         self._nz_phase = sum(_nz_phase(f.h, f.up) for f in firs)
         self.register_buffer("taps", torch.as_tensor(
-            np.stack([f.h for f in firs]).astype(np.float32)))
+            np.stack([f.taps32() for f in firs])))
         self.register_buffer("w", torch.as_tensor(
             np.concatenate([f.weights() for f in firs], axis=1)))
 
@@ -204,13 +253,15 @@ class FIRBank(nn.Module):
     def cost(self, n: int) -> dict:
         """Work of the whole bank on an n-sample block of one row: its
         members share one read of the input."""
-        g = self.geometry
-        kind = "fir_f32" if self.nf == 1 else f"fir_f32_x{self.nf}shared"
+        g, dt = self.geometry, self.compute_dtype
+        kind = f"fir_{dt}" if self.nf == 1 else f"fir_{dt}_x{self.nf}shared"
         return _fir_cost(kind, self._nz_phase, g.up, g.down, n,
-                         self._tail_len, self.nf, g.num_taps)
+                         self._tail_len, self.nf, g.num_taps, _EL_BYTES[dt])
 
     def forward(self, x: torch.Tensor, tail: torch.Tensor):
         xx = torch.cat([tail, x.to(tail.dtype)], dim=-1)
+        if self.compute_dtype == "bf16":
+            xx = _round_bf16(xx)
         L = xx.shape[-1]
         y = fir_bank(xx.reshape(-1, L), self.taps, self.w, self.geometry)
         y = y.reshape(x.shape[:-1] + y.shape[1:])     # (..., nf, n_out)
@@ -234,9 +285,10 @@ class DecimatingFIR(nn.Module):
 
     def __init__(self, fir: PolyFIR):
         super().__init__()
-        if fir.up != 1 or fir.single_tap:
-            raise ValueError("the decimating kernel takes an up = 1 FIR with "
-                             f"more than one tap, got up={fir.up}")
+        if fir.up != 1 or fir.single_tap or fir.compute_dtype != "f32":
+            raise ValueError("the decimating kernel takes an f32 up = 1 FIR "
+                             f"with more than one tap, got up={fir.up}, "
+                             f"{fir.compute_dtype}")
         self.down = fir.down
         self.num_taps = fir.num_taps
         self._nz_phase = _nz_phase(fir.h, 1)

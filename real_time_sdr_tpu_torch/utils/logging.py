@@ -25,13 +25,16 @@ from real_time_sdr_tpu_torch.ops.fir import DecimatingFIR
 from real_time_sdr_tpu_torch.ops.sync import FeedforwardSync
 
 __all__ = ["log_vector", "BlockTimer", "H100_HBM_BPS", "H100_F32_FLOPS",
-           "F32_LATENCY_CYCLES", "roofline_ms", "launch_cost", "stage_costs",
+           "H100_BF16_FLOPS", "F32_LATENCY_CYCLES", "peak_flops",
+           "roofline_ms", "launch_cost", "stage_costs",
            "speed_of_light_report", "device_trace"]
 
-# NVIDIA H100 SXM data sheet (80 GB HBM3, 700 W): HBM bytes/s, and f32
-# FLOP/s outside the tensor cores (no kernel of the port uses them)
+# NVIDIA H100 SXM data sheet (80 GB HBM3, 700 W): HBM bytes/s, f32 FLOP/s
+# outside the tensor cores (every kernel of the port), and the dense bf16
+# tensor-core rate (the wideband fold products at bf16 / bf16x2)
 H100_HBM_BPS = 3.35e12
 H100_F32_FLOPS = 67e12
+H100_BF16_FLOPS = 989e12
 # cycles of a dependent FADD/FMUL/FFMA/FSEL on sm_90: a serial chain of f32
 # operations runs no faster than this many cycles per operation
 F32_LATENCY_CYCLES = 4
@@ -81,12 +84,23 @@ class BlockTimer:
                 f"real time")
 
 
-def roofline_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def peak_flops(kind: str = "") -> tuple[float, str]:
+    """(FLOP/s, name) of the peak a cost of ``kind`` is held against: the
+    bf16 tensor-core peak for a ``*_bf16`` or ``*_bf16x2`` kind, the f32
+    peak for every other."""
+    if {"bf16", "bf16x2"} & set(kind.split("_")):
+        return H100_BF16_FLOPS, "bf16"
+    return H100_F32_FLOPS, "f32"
+
+
+def roofline_ms(nbytes: float, flops: float,
+                kind: str = "") -> tuple[float, str]:
     """The least time the card could take for the work, in ms, and what
     bounds it: the larger of the bytes over the HBM rate ("bytes") and the
-    f32 operations over the f32 peak ("operations")."""
+    operations over the peak of the cost's ``kind`` ("operations",
+    ``peak_flops``)."""
     t_b = nbytes / H100_HBM_BPS * 1e3
-    t_f = flops / H100_F32_FLOPS * 1e3
+    t_f = flops / peak_flops(kind)[0] * 1e3
     return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
@@ -221,7 +235,8 @@ def speed_of_light_report(rx, file=None, channels: int = 1,
     the serving shape ``channels`` x ``blocks``, then one row per kernel
     at that shape, and return the totals.
 
-    A stage's floor is max(flops / H100_F32_FLOPS, bytes / H100_HBM_BPS).
+    A stage's floor is max(flops / peak, bytes / H100_HBM_BPS), the peak
+    that of its kind (``peak_flops``); each row names it.
     Weights stream once per launch and one launch covers every channel and
     block of a segment, so ``w_bytes`` divides by channels * blocks. The
     tier-1 carrier loop is bound by its serial chain, not by bytes or
@@ -241,7 +256,8 @@ def speed_of_light_report(rx, file=None, channels: int = 1,
     print(f"# speed-of-light per blk/ch at serving shape {channels}ch x "
           f"{blocks}blk ({budget*1e3:.2f} ms of signal), NVIDIA H100 SXM "
           f"data-sheet peaks ({H100_HBM_BPS/1e12:.2f} TB/s HBM, "
-          f"{H100_F32_FLOPS/1e12:.0f} TFLOP/s f32):", file=file)
+          f"{H100_F32_FLOPS/1e12:.0f} TFLOP/s f32, "
+          f"{H100_BF16_FLOPS/1e12:.0f} TFLOP/s bf16):", file=file)
     for name, c in stage_costs(rx, channels=channels, blocks=blocks):
         w_b = c["w_bytes"]
         byts = c["bytes"] - w_b + w_b / amort
@@ -263,7 +279,7 @@ def speed_of_light_report(rx, file=None, channels: int = 1,
             print(head + f"chain {cycles} cycles per blk and row "
                   "[latency-bound]", file=file)
             continue
-        t_s, by = roofline_ms(byts, c["flops"])
+        t_s, by = roofline_ms(byts, c["flops"], c["kind"])
         t = t_s / 1e3
         tot_t += t
         if c["kernel"] is not None:
@@ -271,7 +287,8 @@ def speed_of_light_report(rx, file=None, channels: int = 1,
                                                      by={}))
             k["floor_ms"] += t * amort * 1e3
             k["by"][by] = k["by"].get(by, 0.0) + t
-        print(head + f"floor {t*1e6:8.3f} us  [{by}-bound]", file=file)
+        print(head + f"floor {t*1e6:8.3f} us  [{by}-bound, "
+              f"{peak_flops(c['kind'])[1]} peak]", file=file)
     print(f"#  {'TOTAL':26s} {tot_f/1e6:9.2f} MFLOP {tot_b/1e3:9.1f} kB"
           f"{'':20s}floor {tot_t*1e6:8.3f} us -> SoL ceiling "
           f"{budget/tot_t:,.0f}x realtime per channel", file=file)

@@ -166,7 +166,8 @@ def test_cli_survives_noise(tmp_path, capsys):
 @pytest.mark.parametrize("args", [
     ["--io-depth", "0"], ["--pipeline", "-1"],
     ["--stations", "0,3e5"], ["--wide-fs", "9600000"],
-    ["--output-dir", "out"], ["--retune", "0:0:100000"]])
+    ["--output-dir", "out"], ["--retune", "0:0:100000"],
+    ["--wb-fir", "bf16"]])
 def test_cli_bad_arguments_exit_2(args, tmp_path, capsys):
     """Degenerate flags, an unparsable --stations, and the wideband-only
     flags without --stations."""
@@ -177,12 +178,17 @@ def test_cli_bad_arguments_exit_2(args, tmp_path, capsys):
 
 
 def test_cli_parser_matches_jax_surface(jcli):
-    """Same positionals, flags, defaults and choices as the JAX CLI."""
+    """Same positionals, flags, defaults and choices as the JAX CLI, and one
+    flag of the port's own: ``--wb-fir``, the counterpart of the JAX
+    package's RTSDR_WB_FIR / RTSDR_CHAN_FIR environment variables."""
     def surface(ap):
         return {a.dest: (tuple(a.option_strings), a.default,
                          None if a.choices is None else tuple(a.choices),
                          a.nargs) for a in ap._actions if a.dest != "help"}
-    assert surface(cli.make_parser()) == surface(jcli.make_parser())
+    mine = surface(cli.make_parser())
+    assert mine.pop("wb_fir") == (("--wb-fir",), None,
+                                  ("f32", "bf16", "bf16x2"), None)
+    assert mine == surface(jcli.make_parser())
     with pytest.raises(SystemExit) as e:
         cli.make_parser().parse_args(["7"])
     assert e.value.code == 2
@@ -453,6 +459,8 @@ def test_cli_wideband_checkpoint_refuses_other_grids(sky, tmp_path):
     (["--stations=0,300000", "--retune", "0:1"], "--retune takes"),
     (["--stations=7,300000", "--retune", "0:1:20000"],
      "requires the fused wideband frontend"),
+    (["--stations=7,300000", "--wb-fir", "bf16x2"],
+     "--wb-fir bf16x2 needs the fused wideband frontend"),
 ])
 def test_cli_wideband_parse_errors_exit_2(args, message, tmp_path, capsys):
     rc = cli.main(["0", "r", "--cpu", *args, "--output-dir",

@@ -308,20 +308,33 @@ def test_wideband_frontends_default_to_the_card():
 
 
 def test_fused_precision_and_dtype_errors():
-    """The fused frontend computes in float32 with TF32 off and takes no
-    precision keyword (the JAX bf16/bf16x2 weights are not ported); rails
-    must match the weights' dtype."""
+    """The precisions JAX accepts build (f32 by default, TF32 off; bf16
+    weights at bf16, [hi ; lo] at bf16x2, their rows zero-padded to a
+    multiple of 8; the tables f32); an unknown name raises ValueError (JAX
+    asserts); rails are float32 at every precision, so float64 rails raise
+    TypeError."""
     wf = FusedWidebandFrontend(CFG, WIDE_FS, RASTER4)
+    assert wf.compute_dtype == "f32"
     assert {wf.w.dtype, wf.pc.dtype, wf.ps.dtype} == {torch.float32}
     assert not torch.backends.cuda.matmul.allow_tf32
-    for dtype in ("bf16", "bf16x2", "f32"):
+    for dtype, wdt, rows in (("f32", torch.float32, 2),
+                             ("bf16", torch.bfloat16, 2),
+                             ("bf16x2", torch.bfloat16, 4)):
+        fe = FusedWidebandFrontend(CFG, WIDE_FS, RASTER4, compute_dtype=dtype)
+        k = rows * fe.j_w
+        assert fe.w.dtype == wdt and fe.w.shape[0] == (
+            k if dtype == "f32" else -(-k // 8) * 8)
+        assert {fe.pc.dtype, fe.ps.dtype} == {torch.float32}
+        x = torch.zeros(CFG.block_size_iq * wf.decim, dtype=torch.float64)
         with pytest.raises(TypeError):
+            fe(x, x, fe.init_state())
+    for dtype in ("f16", "bf32", "F32", None):
+        with pytest.raises(ValueError):
             FusedWidebandFrontend(CFG, WIDE_FS, RASTER4, compute_dtype=dtype)
     with pytest.raises(ValueError):
+        Channelizer(CFG, WIDE_FS, RASTER4, compute_dtype="bf16x2")
+    with pytest.raises(ValueError):
         FusedWidebandFrontend(CFG, WIDE_FS + 1, RASTER4)
-    x = torch.zeros(CFG.block_size_iq * wf.decim, dtype=torch.float64)
-    with pytest.raises(TypeError):
-        wf(x, x, wf.init_state())
 
 
 def test_retune_roundtrip_and_fresh_construction():
