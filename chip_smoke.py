@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one card and check them.
 
-    python3 chip_smoke.py [--profile DIR] [--sass DIR] [--kernels]
+    python3 chip_smoke.py [--profile DIR] [--sass DIR] [--kernels | --loops]
 
 Run from the root of a checkout, on a machine with one NVIDIA Hopper card
 and the CUDA toolkit. It imports no jax. Phases, each of which exits
@@ -34,6 +34,15 @@ non-zero on failure:
    two are bit-identical: the kernel's detector is the wrapped one, so
    they need not be), with its time at 1, 32 and 1,000 rows; the tier-2
    Newton twin > 40 dB against the kernel over 2 blocks, with its time.
+   The two loops of the alternative RDS decode (``loop_checks``) against
+   their plain loops on the same card tensors: ``mm_timing`` on the
+   32-block baseband and on a 30,000-symbol stream (n_valid equal, > 100
+   dB, bit-identical, or it fails), ``costas_scan`` on their symbols and at
+   1, 64 and 4,096 rows x 1,200 samples (> 80 dB, ``freq_log`` and the
+   carry within 1e-5; bit-identity printed), each with its ms, cycles per
+   step at the max SM clock and share of the chain floor; then
+   ``costas_scan``'s sine and cosine against ``sincosf`` over every f32 in
+   [0, 2*pi] (the largest ulp difference printed).
    Beside each kernel's time stand its bound (the larger of its bytes,
    each input read and each output written once, over 3.35 TB/s and its
    f32 operations over 67 TFLOP/s, the H100 SXM data-sheet peaks of
@@ -50,7 +59,13 @@ non-zero on failure:
    the two-stage product) against the peak of its kind (f32 67, bf16 989
    TFLOP/s); beside a bf16 product two yardsticks off the path: the same
    product with K unpadded (rows not a multiple of 16 bytes) and with a
-   bf16 result (``fr @ w``);
+   bf16 result (``fr @ w``); then (3b) the wideband precisions on noise:
+   seeded random u8 bytes, 4 stations at 9.6 MS/s over two chained
+   one-block segments, through each frontend on the card and on the CPU at
+   each precision, one line per stage with the worse segment's SNR (fused:
+   the fold product's output before the discriminator, then the demod;
+   two-stage: the complex rails of ``forward``); the stages before the
+   discriminator must hold 90 dB;
 4. mode-0 path: a synthetic station tiled to 32 channels (distinct time
    shifts) through ``Receiver(0, stereo=True, rds=True, pll_tier=3,
    device="cuda").run_segment`` over three chained 12-block segments; the
@@ -163,7 +178,10 @@ non-zero on failure:
    groups, the Costas track within 1.5 Hz of the true 11.4 Hz, bits equal
    to the port's CPU run, ``frontend_fused``, ``fir_bank``, ``mm_timing``
    and ``costas_scan`` launched once each; warm decodes timed, median of
-   5, in seconds of radio per wall second); then in subprocesses ``python
+   5, in seconds of radio per wall second; the host split of a warm
+   decode, median of 5: upload, frontend, ``_device_chain``, the fetches
+   and ``SyncByOffsetDecoder.feed``; one warm decode under torch.profiler:
+   device busy, idle share and the top 10 device ops); then in subprocesses ``python
    -m real_time_sdr_tpu_torch.viz 0 --out D --alt --golden`` (the default
    24 blocks: every file, ``alt path: PS='VIZ-DEMO'``, each ``golden SNR``
    line at or above the JAX receiver's against the same oracle minus 1 dB,
@@ -186,7 +204,10 @@ wideband fold product), at every precision of phase 5.
 ``pll_scan``, ``frontend_fused``, ``mm_timing`` and ``costas_scan`` kernels
 to DIR. ``--kernels`` stops
 after phase 3 (build and kernel checks): a short first run of a changed
-kernel; it prints no result line.
+kernel; it prints no result line. ``--loops`` checks and times only the two
+loops of the alternative decode after the build, and stops; it runs from an
+older checkout of the port too (copy this script there), so that two forms
+of the loops can be timed in one call.
 """
 
 from __future__ import annotations
@@ -305,10 +326,250 @@ def decode(RdsFramer, bits, nbits, c):
     return fr.events
 
 
-def profile_segment(torch, card, path, name, run, run_ms):
+def wideband_stages(torch, fe, raw, device):
+    """One wideband frontend over the segments of raw (S, 2N) u8 from its
+    initial state: {stage: [per-segment f32 tensor]}. Fused: ``y``, the
+    fold product of the tail-prefixed rails (before the rotation and the
+    discriminator), ``y_float64``, the same operands' product in float64,
+    and ``demod``; two-stage: ``rails``, the stacked (i, q) station
+    basebands of ``forward``."""
+    from real_time_sdr_tpu_torch.models.channelizer import fold_product
+    from real_time_sdr_tpu_torch.models.wideband_frontend import (
+        FusedWidebandFrontend, u8_to_rails)
+    state, out = fe.init_state(), {}
+    for seg in raw:
+        i, q = u8_to_rails(seg.to(device))
+        if isinstance(fe, FusedWidebandFrontend):
+            fr = fe.frames(torch.cat([state.i_tail, i]),
+                           torch.cat([state.q_tail, q]))
+            out.setdefault("y", []).append(fold_product(fr, fe.w))
+            out.setdefault("y_float64", []).append(
+                fr.double() @ fe.w.double())
+            demod, state = fe(i, q, state)
+            out.setdefault("demod", []).append(demod)
+        else:
+            (i_ds, q_ds), state = fe(i, q, state)
+            out.setdefault("rails", []).append(torch.stack([i_ds, q_ds]))
+    return out
+
+
+def alt_station(torch, alt_rx):
+    """The alternative RDS receiver's station: ALT_BLOCKS mode-0 blocks
+    with an ALT_PPM pilot -> (u8 capture, its demod through the receiver's
+    frontend on the receiver's device)."""
+    from real_time_sdr_tpu_torch.utils import synth
+    iq, _ = synth.station_iq(alt_rx.cfg, ALT_BLOCKS, ps_name=ALT_PS,
+                             pi=ALT_PI,
+                             pilot_freq=19_000.0 * (1 + ALT_PPM * 1e-6))
+    x = torch.from_numpy(iq).to(alt_rx.device)[None]
+    return iq, alt_rx.frontend(x, alt_rx.frontend.init_state(1))[0][0]
+
+
+def loop_checks(torch, np, card, sm_mhz, alt_bb, alt_mu0, mm_gain):
+    """The two loops of the alternative RDS decode, ``mm_timing`` and
+    ``costas_scan``, against their plain versions on the same card tensors
+    at the path's shapes: the 32-block baseband, a 30,000-symbol stream, and
+    the Costas loop at 1, 64 and 4,096 rows x 1,200 samples. Each line holds
+    the kernel's time (median of 10 behind a sleep kernel), its cycles per
+    step at the max SM clock, its share of the chain floor (steps x chain
+    operations x the latency of a dependent f32 operation) and whether it
+    is bit-identical to the plain version. Fails where ``mm_timing`` is not
+    bit-identical, or a loop misses its gate. Returns {name: row}."""
+    from real_time_sdr_tpu_torch.ops.costas import (
+        CostasCarry, coarse_freq_bpsk, costas_scan_plain)
+    from real_time_sdr_tpu_torch.ops.cuda.costas_scan import (
+        COSTAS_CHAIN_OPS, costas_cost, costas_kernel)
+    from real_time_sdr_tpu_torch.ops.cuda.mm_timing import (
+        MM_CHAIN_OPS, mm_timing_cost, mm_timing_kernel)
+    from real_time_sdr_tpu_torch.ops.filters import design_rrc
+    from real_time_sdr_tpu_torch.ops.symbol_timing import mm_timing_plain
+    from real_time_sdr_tpu_torch.utils.logging import F32_LATENCY_CYCLES
+    dev = alt_bb.device
+
+    def plain_ms(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        return out, a.elapsed_time(b)
+
+    def timing(res, steps, ops, t_k):
+        """Adds the step's cycles and the chain floor's share to res."""
+        res["chain_floor_ms"] = (steps * ops * F32_LATENCY_CYCLES
+                                 / (sm_mhz * 1e3))
+        res["cycles_per_step"] = t_k * sm_mhz * 1e3 / max(steps, 1)
+        res["floor_share"] = res["chain_floor_ms"] / t_k
+        return (f"kernel {t_k:.4f} ms, {res['cycles_per_step']:.1f} cycles "
+                f"per step at {sm_mhz:.0f} MHz, {100 * res['floor_share']:.1f}"
+                f" % of the chain floor {res['chain_floor_ms']:.4f} ms "
+                f"({ops} dependent f32 operations a step); bound "
+                f"{res['bound_ms']:.6f} ms ({res['bound_by']}), no library "
+                f"call; on {card}")
+
+    def check_mm(label, z, mu0, gain):
+        """mm_timing on z (N,) complex64 against the plain loop: n_valid
+        equal, symbols > 100 dB and bit-identical."""
+        sk, nk = mm_timing_kernel.launch(z, float(ALT_SPS), gain, mu0)
+        torch.cuda.synchronize()
+        n_valid = int(nk)
+        t_k = device_ms(torch, lambda: mm_timing_kernel.launch(
+            z, float(ALT_SPS), gain, mu0))
+        cost = mm_timing_cost(z.shape[0], sk.shape[0], n_valid)
+        (sp, npl), t_p = plain_ms(lambda: mm_timing_plain(
+            z, float(ALT_SPS), gain, mu0))
+        s_ = csnr_db(torch, sp, sk)
+        same = torch.equal(sk, sp) and int(npl) == n_valid
+        res = dict(n=z.shape[0], symbols=n_valid, ms=t_k, plain_ms=t_p,
+                   **bound(cost["bytes"], cost["flops"]), library_ms=None,
+                   symbols_per_us=n_valid / (t_k * 1e3), snr_db=s_,
+                   max_abs_err=(sk - sp).abs().max().item(),
+                   bit_identical=same, plain_symbols=int(npl))
+        text = timing(res, n_valid, MM_CHAIN_OPS, t_k)
+        print(f"kernel mm_timing[{label}]: ({z.shape[0]},) complex64 -> "
+              f"{n_valid} symbols (plain {int(npl)}), SNR {s_:.1f} dB vs "
+              f"plain, bit-identical {same}; plain (one call) {t_p:.1f} ms; "
+              f"{text}")
+        if not (int(npl) == n_valid and s_ > 100.0 and same):
+            fail(f"mm_timing[{label}] disagrees with its plain version "
+                 f"(n_valid {n_valid} vs {int(npl)}, {s_:.1f} dB, "
+                 f"bit-identical {same})")
+        return res, sk
+
+    def check_costas(label, z, carry):
+        """costas_scan on z (..., N) against the plain loop: derotated
+        > 80 dB, freq_log and the carry within 1e-5 rad/sample."""
+        dk, fk, ck = costas_kernel.launch(z, carry, 0.02, 1e-4)
+        torch.cuda.synchronize()
+        t_k = device_ms(torch, lambda: costas_kernel.launch(z, carry, 0.02,
+                                                            1e-4))
+        rows, n = z.numel() // z.shape[-1], z.shape[-1]
+        cost = costas_cost(rows, n)
+        (dp, fp, cp), t_p = plain_ms(lambda: costas_scan_plain(
+            z, carry, 0.02, 1e-4))
+        s_ = csnr_db(torch, dp, dk)
+        ferr = (fk - fp).abs().max().item()
+        dph = (ck.phase - cp.phase).abs()
+        cerr = max(torch.minimum(dph, 2 * math.pi - dph).max().item(),
+                   (ck.freq - cp.freq).abs().max().item())
+        same = (torch.equal(dk, dp) and torch.equal(fk, fp)
+                and all(torch.equal(u, v) for u, v in zip(ck, cp)))
+        res = dict(shape=list(z.shape), ms=t_k, plain_ms=t_p,
+                   **bound(cost["bytes"], cost["flops"]), library_ms=None,
+                   symbols_per_us=rows * n / (t_k * 1e3), snr_db=s_,
+                   max_abs_err=max(ferr, cerr, (dk - dp).abs().max().item()),
+                   freq_log_err=ferr, bit_identical=same)
+        text = timing(res, n, COSTAS_CHAIN_OPS, t_k)
+        print(f"kernel costas_scan[{label}]: {tuple(z.shape)} complex64: SNR "
+              f"{s_:.1f} dB vs plain, freq_log max err {ferr:.3g}, carry max "
+              f"err {cerr:.3g}, bit-identical {same}; plain (one call) "
+              f"{t_p:.1f} ms; {text}")
+        if not (s_ > 80.0 and ferr < 1e-5 and cerr < 1e-5):
+            fail(f"costas_scan[{label}] disagrees with its plain version "
+                 f"({s_:.1f} dB, freq_log err {ferr:.3g})")
+        return res
+
+    out = {}
+    out["mm_alt"], alt_syms = check_mm(f"alt path, {ALT_BLOCKS} blk", alt_bb,
+                                       alt_mu0, mm_gain)
+    alt_f0 = coarse_freq_bpsk(alt_syms)
+    out["costas_alt"] = check_costas(
+        f"alt path, {ALT_BLOCKS} blk", alt_syms,
+        CostasCarry(torch.zeros_like(alt_f0), alt_f0))
+    # a long stream: ~25 s of RDS, BPSK impulses at the instants of a
+    # +2000 ppm transmitter clock, RRC-shaped (the JAX package's fast-clock
+    # case)
+    eff_sps = ALT_SPS * (1.0 - 2000e-6)
+    rng_l = np.random.default_rng(1)
+    pos = np.arange(LONG_SYMBOLS) * eff_sps
+    n_long = int(pos[-1]) + ALT_SPS + 2
+    zl = np.zeros(n_long + 1)
+    i0 = pos.astype(np.int64)
+    sym_l = rng_l.choice([-1.0, 1.0], size=LONG_SYMBOLS)
+    np.add.at(zl, i0, sym_l * (1.0 - (pos - i0)))
+    np.add.at(zl, i0 + 1, sym_l * (pos - i0))
+    zl = np.convolve(zl, design_rrc(2375.0 * ALT_SPS, 151), mode="same")
+    zl = torch.from_numpy(zl[:n_long].astype(np.complex64)).to(dev)
+    out["mm_long"], syms_long = check_mm(
+        f"long stream, {LONG_SYMBOLS} symbols", zl,
+        torch.zeros((), device=dev), 0.05)
+    if not n_long / ALT_SPS + 4 < out["mm_long"]["symbols"] < \
+            syms_long.shape[0]:
+        fail("mm_timing on the long stream lost the fast clock's symbols "
+             "or ran into its buffer")
+    out["costas_long"] = check_costas(
+        f"long stream, {syms_long.shape[0]} symbols", syms_long,
+        CostasCarry(*(torch.zeros((), device=dev) for _ in range(2))))
+    # many rows: noisy BPSK rows with residual carriers and carried phases
+    rng_r = np.random.default_rng(5)
+    for rows in (1, 64, 4096):
+        f = rng_r.uniform(-0.05, 0.05, (rows, 1))
+        zr = (rng_r.choice([-1.0, 1.0], (rows, 1200))
+              * np.exp(1j * (f * np.arange(1200) + 0.7))
+              + 0.05 * rng_r.standard_normal((rows, 1200)))
+        out[f"costas_rows_{rows}"] = check_costas(
+            f"{rows} rows x 1200", torch.from_numpy(zr.astype(
+                np.complex64)).to(dev), CostasCarry(
+                    torch.from_numpy(rng_r.uniform(0, 6.28, rows).astype(
+                        np.float32)).to(dev),
+                    torch.from_numpy(f[:, 0].astype(np.float32)).to(dev)))
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    print(f"SM clock read after the loops' timings: {clk.stdout.strip()} "
+          f"MHz (cycles above at the max, {sm_mhz:.0f} MHz)")
+    return out
+
+
+def alt_decode_split(torch, np, alt_rx, iq, bits):
+    """The host split of a warm ``AltRdsReceiver.decode``: its steps as
+    decode takes them (the upload, the frontend, ``_device_chain``, the
+    ``.cpu()`` fetches, ``SyncByOffsetDecoder.feed``), each on the host
+    clock up to a synchronize, median of 5 ms each. The bits must equal
+    decode's. Prints the split; returns {step: ms}."""
+    from real_time_sdr_tpu_torch.models.rds_framing import \
+        SyncByOffsetDecoder
+    steps = ("upload", "frontend", "device_chain", "fetch", "feed")
+    times = {k: [] for k in steps}
+    for _ in range(5):
+        t = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+        x = torch.from_numpy(np.ascontiguousarray(iq)).to(alt_rx.device)
+        mark()
+        demod, _ = alt_rx.frontend(x[None], alt_rx.frontend.init_state(1))
+        mark()
+        bb, syms, derot, freq_log, bits_t, n_valid = alt_rx._device_chain(
+            demod[0])
+        mark()
+        nv = int(n_valid)
+        bits_np = bits_t.cpu().numpy()[:max(0, nv - 1)]
+        for v in (bb, syms[:nv], derot[:nv], freq_log[:nv]):
+            v.cpu().numpy()
+        mark()
+        SyncByOffsetDecoder().feed(bits_np)
+        mark()
+        for k, a, b in zip(steps, t, t[1:]):
+            times[k].append((b - a) * 1e3)
+    if not np.array_equal(bits_np, bits):
+        fail("the alternative decode's host split gave other bits than "
+             "decode")
+    split = {k: statistics.median(v) for k, v in times.items()}
+    print("alternative decode, host split (median of 5, host clock up to a "
+          "synchronize): " + ", ".join(f"{k} {v:.3f} ms"
+                                       for k, v in split.items())
+          + f"; sum {sum(split.values()):.3f} ms")
+    return split
+
+
+def profile_segment(torch, card, path, name, run, run_ms, top=0):
     """torch.profiler table of one warm segment -> DIR/<name>.txt and its
     Chrome trace -> DIR/<name>.json (``utils.logging.device_trace``);
-    prints device busy time and idle share."""
+    prints device busy time and idle share, and with ``top`` the top
+    device kernels by their own device time."""
     from torch.autograd import DeviceType
 
     from real_time_sdr_tpu_torch.utils.logging import device_trace
@@ -346,6 +607,13 @@ def profile_segment(torch, card, path, name, run, run_ms):
           f"{fir_us['general'] / 1e3:.3f}); fir_decimate "
           f"{fd_us / 1e3:.3f} ms; matrix products (aten::mm) {mm_txt}")
     print("\n".join(table.splitlines()[:22]))
+    if top:
+        dev_ev = sorted((e for e in avg if e.device_type == DeviceType.CUDA
+                         and e.self_device_time_total > 0),
+                        key=lambda e: -e.self_device_time_total)
+        print(f"top {top} device ops of the {name} run by device time: "
+              + "; ".join(f"{e.key[:60]} {e.self_device_time_total:.1f} us "
+                          f"x{e.count}" for e in dev_ev[:top]))
 
 
 def main() -> None:
@@ -360,6 +628,12 @@ def main() -> None:
     ap.add_argument("--kernels", action="store_true",
                     help="stop after the kernel checks (phase 3); prints "
                     "no result line")
+    ap.add_argument("--loops", action="store_true",
+                    help="check and time only the two loops of the "
+                    "alternative RDS decode (mm_timing, costas_scan) after "
+                    "the build, and stop; runs from an older checkout too, "
+                    "to time its form in the same call; prints no result "
+                    "line")
     args = ap.parse_args()
 
     import numpy as np
@@ -391,22 +665,18 @@ def main() -> None:
             frontend_plain
         from real_time_sdr_tpu_torch.ops.cuda.chan_epilogue import \
             epilogue_cost
-        from real_time_sdr_tpu_torch.ops.cuda.costas_scan import (
-            COSTAS_CHAIN_OPS, costas_cost, costas_kernel)
-        from real_time_sdr_tpu_torch.ops.cuda.mm_timing import (
-            MM_CHAIN_OPS, mm_timing_cost, mm_timing_kernel)
+        from real_time_sdr_tpu_torch.ops.cuda.costas_scan import \
+            costas_kernel
+        from real_time_sdr_tpu_torch.ops.cuda.mm_timing import \
+            mm_timing_kernel
         from real_time_sdr_tpu_torch.ops.cuda.pll_scan import (
             PLL_CHAIN_OPS, pll_scan_kernel)
-        from real_time_sdr_tpu_torch.ops.costas import (
-            CostasCarry, coarse_freq_bpsk, costas_scan_plain)
-        from real_time_sdr_tpu_torch.ops.filters import design_rrc
         from real_time_sdr_tpu_torch.ops.fir import (DecimatingFIR, PolyFIR,
                                                      make_bank)
         from real_time_sdr_tpu_torch.ops.pll import (PllCarry, pll_init,
                                                      pll_newton,
                                                      pll_scan_plain)
-        from real_time_sdr_tpu_torch.ops.symbol_timing import (
-            comb_acquire, mm_timing_plain)
+        from real_time_sdr_tpu_torch.ops.symbol_timing import comb_acquire
         from real_time_sdr_tpu_torch.ops.sync import PllLoop
         from real_time_sdr_tpu_torch.parallel.channel import (ChannelBank,
                                                               gather)
@@ -479,6 +749,14 @@ def main() -> None:
             with open(out, "w") as f:
                 f.write(f"{card}\n" + "\n\t\tFunction : ".join([""] + parts))
             print(f"sass of {len(parts)} {key} kernel(s) -> {out}")
+
+    if args.loops:
+        alt_rx = AltRdsReceiver(0, device=dev)
+        alt_bb = alt_rx.baseband(alt_station(torch, alt_rx)[1])
+        loop_checks(torch, np, card, sm_mhz, alt_bb,
+                    comb_acquire(alt_bb, ALT_SPS), alt_rx.mm_gain)
+        print("--loops: stopping after the two loops' checks")
+        return
 
     # -- fixture: one station, 36 blocks, tiled to 32 shifted channels -------
     rx = Receiver(0, stereo=True, rds=True, pll_tier=3, device=dev)
@@ -894,10 +1172,7 @@ def main() -> None:
     # 32-block +200 ppm station through the frontend, then the baseband
     # bank (2 rows, up 19, down 240, 1,919 taps), then the two loops
     alt_rx = AltRdsReceiver(0, device=dev)
-    alt_iq, _ = synth.station_iq(cfg, ALT_BLOCKS, ps_name=ALT_PS, pi=ALT_PI,
-                                 pilot_freq=19_000.0 * (1 + ALT_PPM * 1e-6))
-    alt_demod = alt_rx.frontend(torch.from_numpy(alt_iq).to(dev)[None],
-                                alt_rx.frontend.init_state(1))[0][0]
+    alt_iq, alt_demod = alt_station(torch, alt_rx)
     t_k, t_p, err, body, extra = check_site(
         "alt_baseband_19_240", alt_rx.bb_bank, 2, alt_demod.shape[-1])
     kernels[fir_bank.name]["max_abs_err"] = max(
@@ -907,142 +1182,26 @@ def main() -> None:
     alt_bb = alt_rx.baseband(alt_demod)
     alt_mu0 = comb_acquire(alt_bb, ALT_SPS)
 
-    def chain_floor(steps, ops):
-        """ms of ``steps`` dependent steps of ``ops`` f32 operations each at
-        the max SM clock."""
-        return steps * ops * F32_LATENCY_CYCLES / (sm_mhz * 1e3)
-
-    def check_mm(label, z, mu0, gain, plain):
-        """mm_timing on z (N,) complex64: kernel ms (median of 10 behind a
-        sleep kernel), its bound from this input's n_valid and its chain
-        floor; with ``plain``, against the plain version on the same card
-        tensors: n_valid equal, symbols > 100 dB, bit-identity printed."""
-        sk, nk = mm_timing_kernel.launch(z, float(ALT_SPS), gain, mu0)
-        torch.cuda.synchronize()
-        n_valid = int(nk)
-        t_k = device_ms(torch, lambda: mm_timing_kernel.launch(
-            z, float(ALT_SPS), gain, mu0))
-        cost = mm_timing_cost(z.shape[0], sk.shape[0], n_valid)
-        res = dict(n=z.shape[0], symbols=n_valid, ms=t_k,
-                   **bound(cost["bytes"], cost["flops"]),
-                   chain_floor_ms=chain_floor(n_valid, MM_CHAIN_OPS),
-                   symbols_per_us=n_valid / (t_k * 1e3), library_ms=None)
-        text = ""
-        if plain:
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            sp, npl = mm_timing_plain(z, float(ALT_SPS), gain, mu0)
-            b.record()
-            b.synchronize()
-            s_ = csnr_db(torch, sp, sk)
-            same = torch.equal(sk, sp) and int(npl) == n_valid
-            res.update(plain_ms=a.elapsed_time(b), snr_db=s_,
-                       max_abs_err=(sk - sp).abs().max().item(),
-                       bit_identical=same, plain_symbols=int(npl))
-            text = (f"n_valid {n_valid} (plain {int(npl)}), SNR {s_:.1f} dB "
-                    f"vs plain, bit-identical {same}; plain (one call) "
-                    f"{res['plain_ms']:.1f} ms; ")
-            if not (int(npl) == n_valid and s_ > 100.0):
-                fail(f"mm_timing[{label}] disagrees with its plain version "
-                     f"(n_valid {n_valid} vs {int(npl)}, {s_:.1f} dB)")
-        print(f"kernel mm_timing[{label}]: ({z.shape[0]},) complex64 -> "
-              f"{n_valid} symbols: {text}kernel {t_k:.4f} ms "
-              f"({res['symbols_per_us']:.3f} symbols/us, "
-              f"{t_k * sm_mhz * 1e3 / max(n_valid, 1):.0f} cycles per symbol "
-              f"at {sm_mhz:.0f} MHz); bound {res['bound_ms']:.6f} ms "
-              f"({res['bound_by']}), chain floor "
-              f"{res['chain_floor_ms']:.4f} ms, no library call")
-        return res, sk
-
-    def check_costas(label, z, carry, plain):
-        """costas_scan on z (..., N): kernel ms, bound and chain floor; with
-        ``plain``, against the plain version on the same card tensors:
-        derotated > 80 dB, freq_log within 1e-5 rad/sample."""
-        dk, fk, ck = costas_kernel.launch(z, carry, 0.02, 1e-4)
-        torch.cuda.synchronize()
-        t_k = device_ms(torch, lambda: costas_kernel.launch(z, carry, 0.02,
-                                                            1e-4))
-        rows, n = z.numel() // z.shape[-1], z.shape[-1]
-        cost = costas_cost(rows, n)
-        res = dict(shape=list(z.shape), ms=t_k,
-                   **bound(cost["bytes"], cost["flops"]),
-                   chain_floor_ms=chain_floor(n, COSTAS_CHAIN_OPS),
-                   symbols_per_us=rows * n / (t_k * 1e3), library_ms=None)
-        text = ""
-        if plain:
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            dp, fp, cp = costas_scan_plain(z, carry, 0.02, 1e-4)
-            b.record()
-            b.synchronize()
-            s_ = csnr_db(torch, dp, dk)
-            ferr = (fk - fp).abs().max().item()
-            dph = (ck.phase - cp.phase).abs()
-            cerr = max(torch.minimum(dph, 2 * math.pi - dph).max().item(),
-                       (ck.freq - cp.freq).abs().max().item())
-            same = (torch.equal(dk, dp) and torch.equal(fk, fp)
-                    and all(torch.equal(u, v) for u, v in zip(ck, cp)))
-            res.update(plain_ms=a.elapsed_time(b), snr_db=s_,
-                       max_abs_err=max(ferr, cerr,
-                                       (dk - dp).abs().max().item()),
-                       freq_log_err=ferr, bit_identical=same)
-            text = (f"SNR {s_:.1f} dB vs plain, freq_log max err "
-                    f"{ferr:.3g}, carry max err {cerr:.3g}, bit-identical "
-                    f"{same}; plain (one call) {res['plain_ms']:.1f} ms; ")
-            if not (s_ > 80.0 and ferr < 1e-5 and cerr < 1e-5):
-                fail(f"costas_scan[{label}] disagrees with its plain "
-                     f"version ({s_:.1f} dB, freq_log err {ferr:.3g})")
-        print(f"kernel costas_scan[{label}]: {tuple(z.shape)} complex64: "
-              f"{text}kernel {t_k:.4f} ms ({res['symbols_per_us']:.3f} "
-              f"symbols/us, {t_k * sm_mhz * 1e3 / n:.0f} cycles per symbol "
-              f"at {sm_mhz:.0f} MHz); bound {res['bound_ms']:.6f} ms "
-              f"({res['bound_by']}), chain floor "
-              f"{res['chain_floor_ms']:.4f} ms, no library call")
-        return res
-
-    mm_main, alt_syms = check_mm(
-        f"alt path, {ALT_BLOCKS} blk", alt_bb, alt_mu0, alt_rx.mm_gain, True)
-    alt_f0 = coarse_freq_bpsk(alt_syms)
-    costas_main = check_costas(
-        f"alt path, {ALT_BLOCKS} blk", alt_syms,
-        CostasCarry(torch.zeros_like(alt_f0), alt_f0), True)
-    # a long stream: ~25 s of RDS, BPSK impulses at the instants of a
-    # +2000 ppm transmitter clock, RRC-shaped (the JAX package's fast-clock
-    # case), kernels only
-    eff_sps = ALT_SPS * (1.0 - 2000e-6)
-    rng_l = np.random.default_rng(1)
-    pos = np.arange(LONG_SYMBOLS) * eff_sps
-    n_long = int(pos[-1]) + ALT_SPS + 2
-    zl = np.zeros(n_long + 1)
-    i0 = pos.astype(np.int64)
-    sym_l = rng_l.choice([-1.0, 1.0], size=LONG_SYMBOLS)
-    np.add.at(zl, i0, sym_l * (1.0 - (pos - i0)))
-    np.add.at(zl, i0 + 1, sym_l * (pos - i0))
-    zl = np.convolve(zl, design_rrc(2375.0 * ALT_SPS, 151), mode="same")
-    zl = torch.from_numpy(zl[:n_long].astype(np.complex64)).to(dev)
-    mm_long, syms_long = check_mm(
-        f"long stream, {LONG_SYMBOLS} symbols", zl,
-        torch.zeros((), device=dev), 0.05, False)
-    if not n_long / ALT_SPS + 4 < mm_long["symbols"] < syms_long.shape[0]:
-        fail("mm_timing on the long stream lost the fast clock's symbols "
-             "or ran into its buffer")
-    costas_long = check_costas(
-        f"long stream, {syms_long.shape[0]} symbols", syms_long,
-        CostasCarry(*(torch.zeros((), device=dev) for _ in range(2))),
-        False)
+    loops = loop_checks(torch, np, card, sm_mhz, alt_bb, alt_mu0,
+                        alt_rx.mm_gain)
+    main_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "chain_floor_ms", "bit_identical")
     kernels[mm_timing_kernel.name] = dict(
-        **{k: mm_main[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms",
-                                   "chain_floor_ms", "bit_identical")},
-        alt_path=mm_main, long_stream=mm_long)
+        **{k: loops["mm_alt"][k] for k in main_keys},
+        alt_path=loops["mm_alt"], long_stream=loops["mm_long"])
     kernels[costas_kernel.name] = dict(
-        **{k: costas_main[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                       "bound_ms", "bound_by", "library_ms",
-                                       "chain_floor_ms", "bit_identical")},
-        alt_path=costas_main, long_stream=costas_long)
-    del zl, syms_long, alt_demod, alt_bb
+        **{k: loops["costas_alt"][k] for k in main_keys},
+        alt_path=loops["costas_alt"], long_stream=loops["costas_long"],
+        rows={k: v for k, v in loops.items() if k.startswith("costas_rows")})
+    # the carried phase's sine and cosine against sincosf, exhaustively
+    from real_time_sdr_tpu_torch.ops.cuda.costas_scan import sincos_max_ulp
+    ulp = sincos_max_ulp(dev)
+    print(f"costas_scan sine and cosine against sincosf over every f32 in "
+          f"[0, 2*pi] ({ulp['values']} values): largest difference "
+          f"{ulp['max_ulp_sin']} ulp (sine), {ulp['max_ulp_cos']} ulp "
+          f"(cosine); {ulp['values_differing']} values differ")
+    kernels[costas_kernel.name]["sincos_check"] = ulp
+    del alt_demod, alt_bb
 
     # -- the wideband fold products (library calls, not kernels of the
     # port) at the 64-station shapes of both frontends, at each precision
@@ -1125,6 +1284,59 @@ def main() -> None:
         del fr, y, yp
     del rails
     print("fold products: " + json.dumps(fold_rows))
+
+    # -- 3b. the wideband precisions on noise: seeded random u8 bytes (4
+    # stations at 9.6 MS/s, two chained one-block segments) through each
+    # frontend on the card and on its CPU twin, at every precision. Fused:
+    # the fold product's output y (before the rotation and the
+    # discriminator), then the demod; two-stage: the complex station rails
+    # of forward (before call_u8 quantises them). Each line holds the worse
+    # segment's SNR; what is before the discriminator must hold 90 dB.
+    offs4 = [-450_000, -150_000, 150_000, 450_000]
+    raw4 = torch.from_numpy(np.random.default_rng(11).integers(
+        0, 256, (2, 8 * cfg.block_size_iq), dtype=np.uint8))
+    noise_rows = {}
+    for path, cls, dts in (("fused", FusedWidebandFrontend, WB_DTYPES),
+                           ("two_stage", Channelizer, ("f32", "bf16"))):
+        for dt in dts:
+            fes = [cls(cfg, 4 * cfg.rf_fs, offs4, compute_dtype=dt,
+                       device=d) for d in (dev, "cpu")]
+            outs = [wideband_stages(torch, fe_n, raw4, d)
+                    for fe_n, d in zip(fes, (dev, "cpu"))]
+            row = {stage: min(snr_db(c, g.cpu()) for g, c in zip(
+                outs[0][stage], outs[1][stage])) for stage in outs[0]
+                if stage != "y_float64"}
+            if "y" in row:
+                # each side's product against the float64 product of its
+                # operands: where the card's and the CPU's sums part
+                for side, o in zip(("card", "cpu"), outs):
+                    row[f"y_vs_float64_{side}"] = min(
+                        snr_db(e.cpu(), y.cpu())
+                        for e, y in zip(o["y_float64"], o["y"]))
+                if dt != "f32":
+                    # the card's bf16 product without reduced-precision
+                    # reductions (torch's flag; on by default)
+                    mm_flags = torch.backends.cuda.matmul
+                    keep = mm_flags.allow_bf16_reduced_precision_reduction
+                    mm_flags.allow_bf16_reduced_precision_reduction = False
+                    try:
+                        o = wideband_stages(torch, fes[0], raw4, dev)
+                    finally:
+                        mm_flags.allow_bf16_reduced_precision_reduction = \
+                            keep
+                    row["y_vs_float64_card_no_reduced_precision"] = min(
+                        snr_db(e.cpu(), y.cpu())
+                        for e, y in zip(o["y_float64"], o["y"]))
+            noise_rows[f"{path}_{dt}"] = row
+            for stage, s_ in row.items():
+                print(f"wideband on noise [{path}, {dt}] {stage}: "
+                      + (f"{s_:.1f} dB" if stage.startswith("y_vs")
+                         else f"card against CPU {s_:.1f} dB"))
+            if min(s_ for st, s_ in row.items()
+                   if st in ("y", "rails")) <= 90.0:
+                fail(f"the {dt} {path} frontend on noise parts from its CPU "
+                     f"run before the discriminator: {row}")
+    print("wideband on noise: " + json.dumps(noise_rows))
     if args.kernels:
         for mode in (1, 2, 3):      # frontend at the other modes' geometry
             fe_m = Receiver(mode, device=dev).frontend
@@ -2299,7 +2511,13 @@ def main() -> None:
              "its CPU run does")
     alt_stats = dict(first_ms=alt_ms, warm_ms=alt_warm,
                      radio_s_per_wall_s=alt_radio / (
-                         statistics.median(alt_warm) / 1e3))
+                         statistics.median(alt_warm) / 1e3),
+                     host_split_ms=alt_decode_split(torch, np, alt_rx, alt_iq,
+                                                    alt_diag.bits))
+    with tempfile.TemporaryDirectory() as tmp_p:
+        profile_segment(torch, card, args.profile or tmp_p, "alt_decode",
+                        lambda: alt_rx.decode(alt_iq),
+                        statistics.median(alt_warm), top=10)
     kernels[mm_timing_kernel.name]["alt_decode"] = alt_stats
 
     def viz_cmd(*args_):

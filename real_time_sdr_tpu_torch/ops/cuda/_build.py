@@ -60,6 +60,8 @@ _SIGNATURES = {
     # phase1, freq1, stream
     "sdr_costas_scan": ([_P, _I, _I, _P, _P] + [_F] * 3 + [_P] * 5,
                         ctypes.c_int),
+    # last_bits, result, stream
+    "sdr_costas_sincos_check": ([ctypes.c_uint, _P, _P], ctypes.c_int),
     "sdr_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -8,9 +8,11 @@ complex64 zero-padded, n_valid 0-d int32), both left on z's device.
 - On CPU tensors it runs ``ops.symbol_timing.mm_timing_plain``.
 - On CUDA tensors it launches the kernel, or raises: one block per stream,
   one thread of which walks the symbols out of shared-memory tiles that the
-  block's other warps stage ahead of it. Every f32 operation is separately
-  rounded, in the plain version's order, so the two should agree bit for
-  bit on the card.
+  block's other warps stage ahead of it. While it computes a symbol it
+  loads the next symbol's three candidate sample pairs and picks one when
+  the advance resolves; an advance outside them takes the general step.
+  Every f32 operation is separately rounded, in the plain version's order,
+  so the two agree bit for bit on the card.
 
 It replaces no Pallas kernel: the JAX package runs this loop as one compiled
 ``lax.while_loop`` (``real_time_sdr_tpu/ops/symbol_timing.py:67``), which
@@ -36,8 +38,7 @@ __all__ = ["mm_timing_kernel", "MmTimingKernel", "MM_CHAIN_OPS",
 # (mu -> 1 - mu -> product -> sum -> rail -> difference -> product -> sum
 # -> err -> gain*err -> + (mu + sps) -> floor -> mu - floor), counted in
 # the SASS of csrc/mm_timing.cu (chip_smoke.py --sass): times the latency
-# of a dependent f32 operation, the loop's floor per symbol (the next
-# pair's shared load, whose address waits on floor(mu), adds to it)
+# of a dependent f32 operation, the loop's floor per symbol
 MM_CHAIN_OPS = 12
 # f32 operations of one symbol's step: 1 - mu; the two interpolations (4
 # products, 2 sums); the rails' 2 compares; the two error terms (4

@@ -916,3 +916,171 @@ def test_wideband_precision_on_card_matches_cpu(card, path, dtype):
     y = fold_product(fr.cuda(), w)
     assert y.dtype == torch.float32
     assert _snr(fold_product_plain(fr, w.cpu()), y) > 90.0
+
+
+def _mm_against_plain(z, mu0, gain):
+    """mm_timing's kernel against the plain loop on the same card tensors:
+    n_valid equal, symbols > 100 dB and bit-identical, one launch."""
+    from real_time_sdr_tpu_torch.ops.cuda import mm_timing_kernel
+    from real_time_sdr_tpu_torch.ops.symbol_timing import mm_timing_plain
+    z = torch.from_numpy(np.asarray(z, np.complex64)).cuda()
+    mu0 = torch.tensor(mu0, dtype=torch.float32, device="cuda")
+    before = mm_timing_kernel.launches
+    sk, nk = mm_timing_kernel(z, 16.0, gain, mu0)
+    assert mm_timing_kernel.launches == before + 1
+    sp, npl = mm_timing_plain(z, 16.0, gain, mu0)
+    assert int(nk) == int(npl)
+    assert _snr(torch.view_as_real(sp), torch.view_as_real(sk)) > 100.0
+    assert torch.equal(sk, sp)
+    return int(nk), sk.shape[0]
+
+
+@pytest.mark.parametrize("case", ["noise_gain_0.5", "mu0_-3.2", "mu0_37.9",
+                                  "tile_edges", "tile_edges_long",
+                                  "n_max_cap"])
+def test_mm_timing_kernel_general_steps(card, case):
+    """The redesigned kernel's general step, where the advance leaves the
+    fast step's window of three candidate pairs: noise at gain 0.5, a first
+    step from mu0 = -3.2 (clamped reads) and 37.9, walks over n = 3*2048 + 5
+    and 3*8192 + 5 samples (3 and 12 edges of the kernel's 2,048-sample
+    staged tiles), and a falling ramp whose negative error
+    shortens every advance until the walk fills its n_max buffer; each
+    against the plain loop (n_valid equal, > 100 dB, bit-identical, and
+    zeros after the last symbol)."""
+    rng = np.random.default_rng(6)
+
+    def noise(n):
+        return rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    z, mu0, gain = {
+        "noise_gain_0.5": (noise(20_000), 0.5, 0.5),
+        "mu0_-3.2": (noise(5_000), -3.2, 0.05),
+        "mu0_37.9": (noise(5_000), 37.9, 0.05),
+        "tile_edges": (noise(3 * 2048 + 5), 0.3, 0.05),
+        "tile_edges_long": (noise(3 * 8192 + 5), 0.3, 0.05),
+        "n_max_cap": (1000.0 - 0.05 * np.arange(20_000) + 0j, 0.0, 0.5),
+    }[case]
+    n_valid, n_max = _mm_against_plain(z, mu0, gain)
+    if case == "n_max_cap":
+        assert n_valid == n_max
+
+
+def test_costas_scan_kernel_phases_near_0_and_2pi(card):
+    """Carried phases next to 0 and 2*pi (and -0.0, 2*pi itself, outside
+    [0, 2*pi]) with frequencies that send x below 0, past 2*pi, inside the
+    range and out of (-2*pi, 4*pi): every branch of the modulo and the
+    general step's regroup; derotated > 80 dB, freq_log and the carry within
+    1e-5 of the plain loop, and bit-identical."""
+    from real_time_sdr_tpu_torch.ops.costas import (CostasCarry,
+                                                    costas_scan_plain)
+    from real_time_sdr_tpu_torch.ops.cuda import costas_kernel
+    m = np.float32(2 * np.pi)
+    phase = np.array([0.0, -0.0, 1e-30, 1e-7, np.nextafter(m, 0), m,
+                      np.nextafter(m, 7), -0.3, 7.0, 100.0, 3.0],
+                     np.float32)
+    freq = np.array([0.0, -1e-7, -1e-6, -0.01, 1e-6, 0.0, 0.01, 0.05, -0.05,
+                     0.0, 9.0], np.float32)
+    rng = np.random.default_rng(7)
+    z = (np.exp(1j * rng.uniform(0, 6.3, (len(phase), 43)))
+         * rng.choice([0.5, 1.0, 2.0], (len(phase), 43))).astype(np.complex64)
+    z = torch.from_numpy(z).cuda()
+    carry = CostasCarry(torch.from_numpy(phase).cuda(),
+                        torch.from_numpy(freq).cuda())
+    dk, fk, ck = costas_kernel(z, carry, 0.02, 1e-4)
+    dp, fp, cp = costas_scan_plain(z, carry, 0.02, 1e-4)
+    assert _snr(torch.view_as_real(dp), torch.view_as_real(dk)) > 80.0
+    assert (fk - fp).abs().max().item() < 1e-5
+    dph = (ck.phase - cp.phase).abs()
+    assert torch.minimum(dph, 2 * math.pi - dph).max().item() < 1e-5
+    assert torch.equal(dk, dp) and torch.equal(fk, fp)
+    assert torch.equal(ck.phase, cp.phase) and torch.equal(ck.freq, cp.freq)
+
+
+def test_costas_scan_kernel_4096_rows(card):
+    """A batch of 4,096 rows x 1,200 samples (64 blocks of 64 threads):
+    derotated > 80 dB, freq_log and the carry within 1e-5 of the plain
+    loop."""
+    from real_time_sdr_tpu_torch.ops.costas import (CostasCarry,
+                                                    costas_scan_plain)
+    from real_time_sdr_tpu_torch.ops.cuda import costas_kernel
+    rng = np.random.default_rng(8)
+    f = rng.uniform(-0.05, 0.05, (4096, 1))
+    z = (rng.choice([-1.0, 1.0], (4096, 1200))
+         * np.exp(1j * (f * np.arange(1200) + 0.7))
+         + 0.05 * rng.standard_normal((4096, 1200)))
+    z = torch.from_numpy(z.astype(np.complex64)).cuda()
+    carry = CostasCarry(
+        torch.from_numpy(rng.uniform(0, 6.28, 4096).astype(np.float32)).cuda(),
+        torch.from_numpy(f[:, 0].astype(np.float32)).cuda())
+    dk, fk, ck = costas_kernel(z, carry, 0.02, 1e-4)
+    dp, fp, cp = costas_scan_plain(z, carry, 0.02, 1e-4)
+    assert _snr(torch.view_as_real(dp), torch.view_as_real(dk)) > 80.0
+    assert (fk - fp).abs().max().item() < 1e-5
+    dph = (ck.phase - cp.phase).abs()
+    assert torch.minimum(dph, 2 * math.pi - dph).max().item() < 1e-5
+    assert (ck.freq - cp.freq).abs().max().item() < 1e-5
+
+
+def test_costas_sincos_matches_sincosf_everywhere(card):
+    """The kernel's sine and cosine of the carried phase equal the
+    library's accurate sincosf(-p) for every f32 p in [0, 2*pi]
+    (1,086,918,620 values): 0 ulp."""
+    from real_time_sdr_tpu_torch.ops.cuda.costas_scan import sincos_max_ulp
+    res = sincos_max_ulp()
+    assert res["values"] == 1_086_918_620
+    assert res["max_ulp_sin"] == res["max_ulp_cos"] == 0
+    assert res["values_differing"] == 0
+
+
+# the wideband frontends on noise, card against CPU: what each stage must
+# hold. Before the discriminator (the fused fold product y, the two-stage
+# rails) every precision holds 90 dB; the discriminator then divides by
+# envelopes near zero, so the demod keeps what y has less ~36 dB
+# (chip_smoke.py phase 3b, NVIDIA H100 80GB HBM3, 700 W: f32 y 128.7 dB ->
+# demod 92.6 dB; bf16 122.4 -> 86.8; bf16x2 122.4 -> 86.1)
+NOISE_DEMOD_DB = {"f32": 90.0, "bf16": 80.0, "bf16x2": 80.0}
+
+
+@pytest.mark.parametrize("path, dtype", [("two_stage", "f32"),
+                                         ("two_stage", "bf16"),
+                                         ("fused", "f32"), ("fused", "bf16"),
+                                         ("fused", "bf16x2")])
+def test_wideband_precision_on_noise_card_matches_cpu(card, path, dtype):
+    """Seeded random u8 bytes (4 stations at 9.6 MS/s, two chained
+    one-block segments) through a wideband frontend on the card and on the
+    CPU: the stages before the discriminator agree to > 90 dB at every
+    precision (the fused fold product's f32 result y; the two-stage complex
+    station rails of ``forward``), where a fault in the bf16 operands (the
+    K padding, the hi/lo split) would cost tens of dB; the fused demod to
+    NOISE_DEMOD_DB. On noise the bf16 forms' y sits ~6 dB further from the
+    CPU's than f32's (the tensor-core product sums its exact products in
+    another way than the CPU's f32 matmul), and the discriminator carries
+    that gap to the demod."""
+    from real_time_sdr_tpu_torch.models.channelizer import fold_product
+    from real_time_sdr_tpu_torch.models.wideband_frontend import (
+        FusedWidebandFrontend, u8_to_rails)
+    rx, _ = card
+    cfg = rx.cfg
+    offs = [-450_000, -150_000, 150_000, 450_000]
+    cls = Channelizer if path == "two_stage" else FusedWidebandFrontend
+    fes = [cls(cfg, 4 * cfg.rf_fs, offs, compute_dtype=dtype, device=d)
+           for d in ("cuda", "cpu")]
+    raw = torch.from_numpy(np.random.default_rng(11).integers(
+        0, 256, (2, 8 * cfg.block_size_iq), dtype=np.uint8))
+    states = [fe.init_state() for fe in fes]
+    for seg in raw:
+        outs = []
+        for k, (fe, d) in enumerate(zip(fes, ("cuda", "cpu"))):
+            i, q = u8_to_rails(seg.to(d))
+            st = states[k]
+            if path == "fused":
+                y = fold_product(fe.frames(torch.cat([st.i_tail, i]),
+                                           torch.cat([st.q_tail, q])), fe.w)
+                demod, states[k] = fe(i, q, st)
+                outs.append((y, demod))
+            else:
+                (i_ds, q_ds), states[k] = fe(i, q, st)
+                outs.append((torch.stack([i_ds, q_ds]),))
+        (g, c) = outs
+        assert _snr(c[0], g[0]) > 90.0
+        if path == "fused":
+            assert _snr(c[1], g[1]) > NOISE_DEMOD_DB[dtype]
