@@ -83,27 +83,38 @@ non-zero on failure:
    the unstaged segment 1 between them must equal three unstaged calls in
    every output leaf and the final state (``torch.equal``), launch the
    frontend, FIR-bank and decimating-FIR kernels as often, and give the
-   same ``digest_step``; warm staged and unstaged segments in turns (8
-   each, host staging and H2D included, each H2D printed); the roofline
+   same ``digest_step``; the three cells through the graphed
+   ``jit_run_segment_staged`` (``graph_check``: one eager call clean under
+   ``torch.cuda.set_sync_debug_mode("error")``, then the chain eager and
+   graphed, the first graphed call capturing: every output leaf and the
+   state ``torch.equal``, the kernels' counts equal, the path's kernels
+   launched by the replays); warm unstaged, staged and graphed staged
+   segments in turns (8 each, host staging and H2D included, each H2D and
+   the host's time to dispatch the call printed), the same calls with the
+   operand on the card (``turns``: dispatch and wall ms) and one call's peak
+   memory eager and graphed; the roofline
    report (``utils.logging.speed_of_light_report``) at 32 x 12, whose
    kernel rows must equal phase 3's bounds within 1 %; warm segments are
    timed for the aggregate real-time multiple; then the same 32 x 12
    segments
    at the default tier 1 (``pll_scan`` launches rise, PS/PI decode, warm
-   segments timed beside tier 3, its roofline report beside the loops'
+   segments timed beside tier 3, the staged cells through
+   ``jit_run_segment_staged`` as at tier 3, eager and graphed calls in
+   turns and their peak memory, its roofline report beside the loops'
    chain floor; ``pll_scan`` again > 80 dB against its
    plain version, on the stereo and RDS pilots of one real tier-1 segment
    at (32, 88,200) with the plain version on channels 0-1, and at the
    CLI's (1, 7,350), each with kernel ms), and one 2-block segment at
-   tier 2;
+   tier 2 (also through ``jit_step``, graphed against eager);
    then modes 1-3 at 32 ch x 12 blk, type r, tier 3: the frontend > 90 dB
    (mode 3 decimates by 3) and each new FIR-bank geometry (audio 1/9,
    147/800, 147/1280; RDS 247/960, 19/96, 95/768) > 110 dB against their
    plain versions, PS/PI decoded on channel 0 (PS on 31, 29 and 31 of 32
    channels, as on the CPU), channels 0-1 against the
    CPU run (audio > 60 dB, RDS bits equal from a carried state), warm
-   segments timed; ``fir_decimate`` must launch at mode 1 and must not at
-   modes 2-3, whose audio upsamples;
+   segments timed, the segments through ``jit_step`` (``graph_check``);
+   ``fir_decimate`` must launch at mode 1 and must not at modes 2-3, whose
+   audio upsamples;
 5. wideband paths: 64 stations on the 300 kHz raster in one 19.2 MS/s
    capture (3 real stations, the other slots empty), raw u8 bytes through
    ``ChannelBank.run_wideband_u8`` in 12-block segments, once through the
@@ -113,7 +124,11 @@ non-zero on failure:
    ``fir_decimate`` must launch on both; PS/PI must
    decode on the 3 stations on both paths; the
    two-stage u8 of the first 2 blocks must agree with the CPU run (within
-   1 LSB on < 1 % of bytes); warm segments are timed. Then the same
+   1 LSB on < 1 % of bytes); warm segments are timed; the segments through
+   ``run_wideband_u8_jit`` against ``run_wideband_u8`` (``graph_check``
+   with the library gate: a leaf that differs is printed and held to > 90
+   dB, integer leaves equal), eager and graphed calls in turns and their
+   peak memory, at every precision below too. Then the same
    capture through the two-stage frontend at bf16 and the fused one at
    bf16 and bf16x2: PS/PI on the 3 stations (the gate), the kernels
    launched as at f32, the fused demod of the real stations > 35 dB (bf16)
@@ -128,10 +143,15 @@ non-zero on failure:
    blocks played 4 times): PS, PI
    and PTY on stderr, the exact PCM byte count, the kernels launched
    (its ``kernel launches`` line), its real-time multiple and p50/p99
-   ingest->PCM latency against the 30.6 ms block deadline; then
+   ingest->PCM latency against the 30.6 ms block deadline; the CLI serves
+   the graphed ``jit_run_segment_staged``, and its PCM must equal an
+   in-process eager ``run_segment_staged`` over the same one-block groups
+   byte for byte; the same run on the eager entries (``EAGER_CLI``, the
+   receiver's eager functions patched in; identical PCM), then
    ``--staged 0``, ``0`` and ``1`` with ``--stats`` (``1``, the default,
-   serves ``run_segment_staged``: identical PCM and RDS lines; each run's
-   ms per block and p50/p99 printed); a staged ``--checkpoint`` pair over
+   serves ``jit_run_segment_staged``, ``0`` ``jit_step``: identical PCM and
+   RDS lines), then the eager entries again; each run's ms per block,
+   real-time multiple and p50/p99 printed; a staged ``--checkpoint`` pair over
    the capture's two halves joins to the first run's PCM byte for byte;
    ``2 r --pll-tier 1`` decodes PS;
 7. wideband CLI at full width: the 64-station 19.2 MS/s capture of phase
@@ -141,8 +161,11 @@ non-zero on failure:
    0, ``ch3 ps:``, ``ch32 ps:`` and ``ch62 ps:`` lines with the stations'
    PS, 64 PCM files of exactly 36 x audio_block x 2 samples, its ``kernel
    launches`` line (``fir_bank`` and ``fir_decimate`` above 0), its
-   real-time multiple on the capture rate; again with ``--pipeline 4``
-   (PCM byte-identical); with ``--wb-fir bf16`` (the 3 stations' PS, 64
+   real-time multiple on the capture rate (the CLI serves the graphed
+   ``run_wideband_u8_jit``); again with ``--pipeline 4`` (PCM
+   byte-identical); on the bank's eager entry and then graphed again (PCM
+   byte-identical; each run's ms per block, real-time multiple and
+   segment p50/p99 printed); with ``--wb-fir bf16`` (the 3 stations' PS, 64
    PCM files of the exact size, the real stations' PCM against the first
    run's and both real-time multiples printed); with ``--retune
    1:0:<slot 32's offset>``
@@ -150,7 +173,11 @@ non-zero on failure:
    byte-identical); and as two runs with ``--checkpoint`` (18 blocks, then
    the rest: the joined PCM within 1 LSB of the first run's, the three
    stations' PS printed by the end);
-8. parallel paths at full width (mode 0, type r): one 384-block capture
+8. parallel paths at full width (mode 0, type r): phase 4's 32 channels
+   through ``ChannelBank.run_segment_grouped(group=8)`` (one graph of 4
+   sub-batches) against its eager form (``graph_check``) and against
+   ``run_segment`` (audio > 100 dB, RDS bits equal, bit-identity printed:
+   a reduction's split may follow the batch rows); one 384-block capture
    (56.4 MB u8, 11.76 s of radio, synthesized whole: no two shards hold
    the same bytes) on the card, through ``time_sharded_run(rx, blocks, shards=32)`` at tier 3
    (the shards are the 32 rows of one batch) against ``rx.run_blocks`` on
@@ -193,11 +220,14 @@ non-zero on failure:
 
 Each path's kernel counts are set to 0 just before it and read just after
 (a CLI run is a process of its own: its counts start at 0 and are read from
-its ``kernel launches`` line).
-The last two lines are the kernels' JSON and the device JSON.
+its ``kernel launches`` line). A graph replay calls no kernel wrapper: the
+graph cache adds the counts its capture recorded on every replay
+(``utils.graphs``), so a graphed path's counts are its eager path's.
+A ``graphs:`` JSON line gathers the graphed paths' numbers. The last two
+lines are the kernels' JSON and the device JSON.
 ``--profile DIR`` also writes a torch.profiler table and Chrome trace of
-one warm segment of each path (the staged mode-0 segment among them) to
-DIR and prints the segment's device busy time, idle share, FIR-bank
+one warm segment of each path (the staged mode-0 segment among them, and
+its graphed form) to DIR and prints the segment's device busy time, idle share, FIR-bank
 device time and the device time of its matrix products (``aten::mm``: the
 wideband fold product), at every precision of phase 5.
 ``--sass DIR`` writes ``cuobjdump -sass`` of the built library's
@@ -248,6 +278,16 @@ GOLDEN_SNR_CPU = {"FM demod (IF)": 132.0, "Audio L": 133.2,
                   "Audio R": 133.3, "RDS RRC output": 122.1}
 GOLDEN_SNR_JAX = {"FM demod (IF)": 129.0, "Audio L": 78.5,
                   "Audio R": 78.6, "RDS RRC output": 45.8}
+# the CLI with the receiver's and the bank's eager functions in place of
+# their graphed entries (the CLI has no such option): the eager side of
+# the CLI measurements, and the PCM it must equal byte for byte
+EAGER_CLI = (
+    "import sys; "
+    "from real_time_sdr_tpu_torch.models.receiver import Receiver as R; "
+    "from real_time_sdr_tpu_torch.parallel.channel import ChannelBank as B; "
+    "R.jit_step = R.step; R.jit_run_segment_staged = R.run_segment_staged; "
+    "B.run_wideband_u8_jit = B.run_wideband_u8; "
+    "from real_time_sdr_tpu_torch import cli; sys.exit(cli.main())")
 
 
 def fail(msg: str) -> None:
@@ -679,12 +719,14 @@ def main() -> None:
         from real_time_sdr_tpu_torch.ops.symbol_timing import comb_acquire
         from real_time_sdr_tpu_torch.ops.sync import PllLoop
         from real_time_sdr_tpu_torch.parallel.channel import (ChannelBank,
-                                                              gather)
+                                                              gather,
+                                                              grouped_step)
         from real_time_sdr_tpu_torch.parallel.time_shard import (
             time_sharded_run, time_sharded_run_bank)
         from real_time_sdr_tpu_torch.parallel.wideband import (
             ShardedFusedWideband, ShardedWideband)
         from real_time_sdr_tpu_torch.utils import benchkit, synth
+        from real_time_sdr_tpu_torch.utils.audio import stereo_pcm
         from real_time_sdr_tpu_torch.utils.logging import (
             F32_LATENCY_CYCLES, launch_cost, peak_flops,
             speed_of_light_report)
@@ -1365,6 +1407,7 @@ def main() -> None:
         return
 
     launches = {k.name: 0 for k in KERNELS}
+    graph_stats = {}         # the graphed paths' numbers, one JSON line
     by_path, bodies_by_path, fd_bodies_by_path = {}, {}, {}
 
     def reset_counts():
@@ -1507,6 +1550,128 @@ def main() -> None:
               f"{radio:.4f} s of radio per segment) on {card}")
         return med_, statistics.median(h2d), st
 
+    def graph_check(path, eager, jit, calls, st0, needed, bodies,
+                    library=False):
+        """The graphed form of a path against its eager form. One warm
+        eager call runs under ``torch.cuda.set_sync_debug_mode("error")``:
+        the path makes no host sync, which a capture could not hold. Then
+        ``calls`` chained from ``st0`` eagerly and through ``jit`` (its
+        first call captures), the counts reset before each chain: every
+        output leaf and the final state ``torch.equal`` and the kernels'
+        counts (and bodies) equal, the ``needed`` kernels launched by the
+        replays (``count_path``). With ``library`` (a path through a
+        library GEMM, which may choose another algorithm under capture)
+        leaves that differ are printed and held to the gates instead:
+        every float leaf > 90 dB against eager, integer leaves equal.
+        Also records what the new graph holds: its pool and static buffers
+        stay reserved after the allocator's cache is emptied. Returns the
+        graphed chain's [(state, *outputs)]."""
+        eager(st0, *calls[0])
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager(st0, *calls[0])
+        except RuntimeError as e:
+            torch.cuda.set_sync_debug_mode(0)
+            fail(f"{path}: the eager path syncs with the host: {e}")
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        chains, counts = {}, {}
+        for form, fn in (("eager", eager), ("graphed", jit)):
+            reset_counts()
+            st, res = st0, []
+            for a in calls:
+                st, *out = fn(st, *a)
+                res.append((st, *out))
+            torch.cuda.synchronize()
+            chains[form] = res
+            counts[form] = ({k.name: k.launches for k in KERNELS},
+                            dict(fir_bank.body_launches),
+                            dict(fir_decimate.body_launches))
+        count_path(f"{path}_graphed", needed, bodies)
+        bad = []
+        for k, (ref, got) in enumerate(zip(chains["eager"],
+                                           chains["graphed"])):
+            for i, (a, b) in enumerate(zip(leaves(ref), leaves(got))):
+                if not torch.equal(a, b):
+                    bad.append((k, i, a, b))
+        print(f"{path} graphed: {len(calls)} chained calls (the first "
+              f"captures) against eager: every output leaf and the state "
+              f"torch.equal {not bad}; launch counts equal "
+              f"{counts['eager'] == counts['graphed']}; eager warm call "
+              "clean under set_sync_debug_mode('error')")
+        for k, i, a, b in bad:
+            diff = (f"{snr_db(a, b):.1f} dB" if a.is_floating_point() else
+                    f"{int((a != b).sum())} of {a.numel()} differ")
+            print(f"  {path} call {k} leaf {i} {tuple(a.shape)} {a.dtype}: "
+                  f"{diff}")
+            if not library:
+                fail(f"{path}: the graphed path differs from the eager one")
+            if not (a.is_floating_point() and snr_db(a, b) > 90.0):
+                fail(f"{path}: a graphed library product is off its gate")
+        if counts["eager"] != counts["graphed"]:
+            fail(f"{path}: the replays counted {counts['graphed']}, the "
+                 f"eager calls {counts['eager']}")
+        del chains["eager"], bad
+        torch.cuda.empty_cache()
+        held = (torch.cuda.memory_reserved() - reserved0) / 1e9
+        graph_stats[path] = dict(graph_holds_gb=held)
+        print(f"{path} graph: {held:.3f} GB more device memory reserved "
+              "after emptying the cache than before its capture (its pool "
+              "and static buffers, and the graphed chain's results)")
+        return chains["graphed"]
+
+    def turns(path, forms, reps=8):
+        """Warm calls of each form in turns (the order rotates), each form
+        chaining its own state: ``forms[name] = (call(state) -> state,
+        state)``. Host clock: ms until the call returns (the host's time to
+        dispatch it) and ms to a synchronize after it. Prints and returns
+        the medians {name: (dispatch ms, wall ms)}."""
+        names = list(forms)
+        states = {n: forms[n][1] for n in names}
+        dispatch = {n: [] for n in names}
+        wall = {n: [] for n in names}
+        for rep in range(reps):
+            for n in names[rep % len(names):] + names[:rep % len(names)]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                states[n] = forms[n][0](states[n])
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                dispatch[n].append((t1 - t0) * 1e3)
+                wall[n].append((time.perf_counter() - t0) * 1e3)
+        med_ = {n: (statistics.median(dispatch[n]),
+                    statistics.median(wall[n]))
+                for n in names}
+        print(f"{path} warm calls, {reps} of each in turns, the input on "
+              f"the card: " + "; ".join(
+                  f"{n} dispatch {v[0]:.3f} ms, wall {v[1]:.3f} ms (min "
+                  f"{min(wall[n]):.3f}, max {max(wall[n]):.3f})"
+                  for n, v in med_.items()) + f"; on {card}")
+        return med_
+
+    def peak_memory(path, eager_call, graphed_call):
+        """Peak device memory of one warm eager call and one graphed call,
+        and the memory the card holds reserved (the graphs' pools among
+        it). Returns the numbers in GB."""
+        out = {}
+        for form, call in (("eager", eager_call), ("graphed", graphed_call)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            call()
+            torch.cuda.synchronize()
+            out[form] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+        out["reserved"] = torch.cuda.memory_reserved() / 1e9
+        print(f"{path} peak device memory: eager call {out['eager']:.3f} GB, "
+              f"graphed call {out['graphed']:.3f} GB (the graph's pool is "
+              f"not in the allocator's count); reserved after emptying the "
+              f"cache (live tensors and every graph's pool) "
+              f"{out['reserved']:.3f} GB; on {card}")
+        return out
+
     def staged_path(segs_p, st0):
         """Host-staged ingest at the flagship shape. The segments' staged
         cells (``benchkit.stage_cells``: pinned host memory, asynchronous
@@ -1515,8 +1680,11 @@ def main() -> None:
         unstaged segment 1 between them, against three unstaged calls from
         ``st0``: every output leaf and the final state equal, and the
         kernels launched as often as on the unstaged path. The digests
-        equal. Then warm segments of both forms in turns, H2D included,
-        and the roofline report against phase 3's bounds."""
+        equal. The three cells through ``jit_run_segment_staged``
+        (``graph_check``). Then warm segments of the unstaged, staged and
+        graphed staged forms in turns, host staging and H2D included, the
+        host's time to dispatch each call, peak memory, and the roofline
+        report against phase 3's bounds. Returns the cells."""
         n2 = segs_p[0].shape[1]
         tl = rx.frontend.tail_len
         cells = benchkit.stage_cells(rx, np.concatenate(segs_p, axis=1), 1,
@@ -1557,41 +1725,52 @@ def main() -> None:
             if got[name] != want[name]:
                 fail(f"{name} launched {got[name]} times on the staged path, "
                      f"{want[name]} on the unstaged one")
-        # warm segments of both forms in turns (unstaged, staged, staged,
-        # unstaged, ...), each chain carrying its own state; host clock
-        # around (host staging +) upload + run + synchronize, events around
-        # the upload
+        graph_check("mode0_staged", rx.run_segment_staged,
+                    rx.jit_run_segment_staged, [(c, n2) for c in cells], st0,
+                    (frontend_fused.name, fir_bank.name, fir_decimate.name),
+                    ("tiled", "general"))
+        # warm segments of the three forms in turns (the order rotates),
+        # each chain carrying its own state and host tail; host clock
+        # around (host staging +) upload + run + synchronize, and until the
+        # call returns (its dispatch); events around the upload
         ring = [torch.empty((CH, rx.frontend.staged_len(n2)),
                             dtype=torch.uint8, pin_memory=True)
                 for _ in range(2)]
-        chains = {"unstaged": st_ref, "staged": st_s}
-        tail = np.ascontiguousarray(segs_p[-1][:, n2 - tl:])
-        wall = {"unstaged": [], "staged": []}
-        h2d = {"unstaged": [], "staged": []}
+        forms = ("unstaged", "staged", "graphed")
+        chains = {"unstaged": st_ref, "staged": st_s, "graphed": st_s}
+        tails = dict.fromkeys(forms[1:], np.ascontiguousarray(
+            segs_p[-1][:, n2 - tl:]))
+        wall = {f: [] for f in forms}
+        h2d = {f: [] for f in forms}
+        dispatch = {f: [] for f in forms}
         host_ms = []
         reps = 8
         for rep in range(reps):
             seg = segs_p[rep % SEGMENTS]
-            for path in (("unstaged", "staged") if rep % 2 == 0
-                         else ("staged", "unstaged")):
+            for path in forms[rep % 3:] + forms[:rep % 3]:
                 marks = [torch.cuda.Event(enable_timing=True)
                          for _ in range(3)]
                 t0 = time.perf_counter()
-                if path == "staged":
+                if path != "unstaged":
                     buf = ring[rep % 2]
-                    rx.frontend.stage_segment(tail, seg, out=buf.numpy())
+                    rx.frontend.stage_segment(tails[path], seg,
+                                              out=buf.numpy())
                     host_ms.append((time.perf_counter() - t0) * 1e3)
                     marks[0].record()
                     x = buf.to(dev, non_blocking=True)
                     marks[1].record()
-                    chains[path], _ = rx.run_segment_staged(chains[path], x,
-                                                            n2)
-                    tail = seg[:, n2 - tl:]
+                    t1 = time.perf_counter()
+                    run = (rx.run_segment_staged if path == "staged"
+                           else rx.jit_run_segment_staged)
+                    chains[path], _ = run(chains[path], x, n2)
+                    tails[path] = seg[:, n2 - tl:]
                 else:
                     marks[0].record()
                     x = torch.from_numpy(seg).to(dev)
                     marks[1].record()
+                    t1 = time.perf_counter()
                     chains[path], _ = rx.run_segment(chains[path], x)
+                dispatch[path].append((time.perf_counter() - t1) * 1e3)
                 marks[2].record()
                 marks[2].synchronize()
                 wall[path].append((time.perf_counter() - t0) * 1e3)
@@ -1608,15 +1787,40 @@ def main() -> None:
               f"{h2d_['staged']:.3f} ms), unstaged median "
               f"{med_['unstaged']:.3f} ms (min {min(wall['unstaged']):.3f}, "
               f"max {max(wall['unstaged']):.3f}; H2D pageable "
-              f"{h2d_['unstaged']:.3f} ms); aggregate "
-              f"{CH * radio / (med_['staged'] / 1e3):.1f}x against "
-              f"{CH * radio / (med_['unstaged'] / 1e3):.1f}x real time; on "
-              f"{card}")
+              f"{h2d_['unstaged']:.3f} ms); graphed staged median "
+              f"{med_['graphed']:.3f} ms (min {min(wall['graphed']):.3f}, "
+              f"max {max(wall['graphed']):.3f}; H2D pinned "
+              f"{h2d_['graphed']:.3f} ms); aggregate "
+              f"{CH * radio / (med_['graphed'] / 1e3):.1f}x graphed, "
+              f"{CH * radio / (med_['staged'] / 1e3):.1f}x staged, "
+              f"{CH * radio / (med_['unstaged'] / 1e3):.1f}x unstaged real "
+              f"time; host time to dispatch the call: graphed "
+              f"{statistics.median(dispatch['graphed']):.3f} ms, staged "
+              f"{statistics.median(dispatch['staged']):.3f} ms, unstaged "
+              f"{statistics.median(dispatch['unstaged']):.3f} ms; on {card}")
+        graph_stats["mode0_staged"].update(
+            turns=turns("mode0_staged", {
+                "eager": (lambda st: rx.run_segment_staged(st, cells[0],
+                                                           n2)[0], st0),
+                "graphed": (lambda st: rx.jit_run_segment_staged(
+                    st, cells[0], n2)[0], st0)}),
+            wall_ms={f: med_[f] for f in forms},
+            dispatch_ms={f: statistics.median(dispatch[f]) for f in forms},
+            host_staging_ms=statistics.median(host_ms),
+            memory_gb=peak_memory(
+                "mode0_staged",
+                lambda: rx.run_segment_staged(st0, cells[0], n2),
+                lambda: rx.jit_run_segment_staged(st0, cells[0], n2)))
         if args.profile:     # the operand is on the card already
             profile_segment(torch, card, args.profile, "mode0_staged",
                             lambda: rx.run_segment_staged(st0, cells[0], n2),
                             med_["staged"] - statistics.median(host_ms)
                             - h2d_["staged"])
+            # the graphed call's wall with its operand on the card
+            profile_segment(torch, card, args.profile, "mode0_staged_graphed",
+                            lambda: rx.jit_run_segment_staged(st0, cells[0],
+                                                              n2),
+                            graph_stats["mode0_staged"]["turns"]["graphed"][1])
         # the roofline from the modules' cost(): each kernel's row at the
         # flagship shape against phase 3's bound of the same launches
         sol = speed_of_light_report(rx, file=sys.stdout, channels=CH,
@@ -1632,7 +1836,8 @@ def main() -> None:
                 fail(f"the roofline row of {name} is not phase 3's bound")
         print(f"roofline, mode 0 tier 3 at {CH} x {BLOCKS}: floor "
               f"{sol['floor_s'] * CH * BLOCKS * 1e3:.4f} ms per segment")
-        del cells, ring, chains
+        del ring, chains
+        return cells
 
     # -- 4. mode-0 path -------------------------------------------------------
     outs, states, seg_ms, left, right = run_path(
@@ -1650,7 +1855,8 @@ def main() -> None:
     if not (sep_l > 30 and sep_r > 30):
         fail("left/right do not carry their tones")
     vs_cpu("mode0", rx, segs, outs, states)
-    staged_path(segs, states[-1])
+    cells = staged_path(segs, states[-1])
+    n2_0 = segs[0].shape[1]
     med, h2d_med, state = warm("mode0", rx, states[-1], segs, seg_ms, 10)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
           f"GB on {card}")
@@ -1672,6 +1878,24 @@ def main() -> None:
     med1, _, _ = warm("mode0_tier1", rx1, states[-1], segs, seg_ms, 5)
     print(f"mode-0 warm segment, tier 1 vs tier 3: {med1:.3f} ms vs "
           f"{med:.3f} ms")
+    # the same staged cells at tier 1 through jit_run_segment_staged (the
+    # operand depends on the frontend alone, which the tiers share)
+    graph_check("mode0_tier1_staged", rx1.run_segment_staged,
+                rx1.jit_run_segment_staged, [(c, n2_0) for c in cells],
+                states[-1], (frontend_fused.name, fir_bank.name,
+                             fir_decimate.name, pll_scan_kernel.name),
+                ("tiled", "general"))
+    graph_stats["mode0_tier1_staged"].update(
+        turns=turns("mode0_tier1_staged", {
+            "eager": (lambda st: rx1.run_segment_staged(st, cells[0],
+                                                        n2_0)[0],
+                      states[-1]),
+            "graphed": (lambda st: rx1.jit_run_segment_staged(
+                st, cells[0], n2_0)[0], states[-1])}),
+        memory_gb=peak_memory(
+            "mode0_tier1_staged",
+            lambda: rx1.run_segment_staged(states[-1], cells[0], n2_0),
+            lambda: rx1.jit_run_segment_staged(states[-1], cells[0], n2_0)))
     # pll_scan at the shapes the tier-1 paths give it: the stereo and RDS
     # pilots of one real segment, (32, 12 x 7,350) as mode0_tier1 runs
     # them, and channel 0's first block, (1, 7,350) as the CLI runs them.
@@ -1726,7 +1950,10 @@ def main() -> None:
             fail("tier 2: non-finite audio")
     print(f"mode0_tier2: one {CH} ch x 2 blk segment, "
           f"{statistics.median(t2):.2f} ms (median of 3, host clock)")
-    del segs
+    graph_check("mode0_tier2", rx2.step, rx2.jit_step, [(x2,), (x2,)],
+                rx2.init_state(CH), (frontend_fused.name, fir_bank.name,
+                                     fir_decimate.name), ("tiled", "general"))
+    del rx2, x2, cells
 
     # -- 4c. modes 1-3 at 32 ch x 12 blk, type r, tier 3 ---------------------
     pi0m, pq0m = (torch.from_numpy(rng.uniform(-0.5, 0.5, CH).astype(
@@ -1785,7 +2012,12 @@ def main() -> None:
             PS_CHANNELS[mode])
         vs_cpu(f"mode{mode}", rxm, segs_m, outs, states)
         warm(f"mode{mode}", rxm, states[-1], segs_m, seg_ms, 5)
-        del outs, states, segs_m
+        graph_check(f"mode{mode}", rxm.step, rxm.jit_step,
+                    [(torch.from_numpy(sg).to(dev),) for sg in segs_m],
+                    rxm.init_state(CH), (frontend_fused.name, fir_bank.name)
+                    + ((fir_decimate.name,) if a_up == 1 else ()),
+                    ("tiled", "general"))
+        del outs, states, segs_m, rxm
     kernels[frontend_fused.name]["modes"] = fe_modes
     kernels[fir_bank.name]["mode_sites"] = mode_sites
 
@@ -1868,6 +2100,30 @@ def main() -> None:
               f"{WB_STATIONS * cfg.rf_fs * rt / 1e6:.1f} MS/s of station IQ "
               f"decoded; peak device memory "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; on {card}")
+
+        # the graphed entry: three chained segments from a fresh state
+        # against the eager ones (a library fold product inside: held to
+        # its gates where a leaf differs), then warm calls in turns
+        def eager_wb(st, seg, fe=fe):
+            b_, o_, f_ = wbank.run_wideband_u8(st[0], fe, seg, st[1])
+            return (b_, f_), o_
+
+        def jit_wb(st, seg, fe=fe):
+            b_, o_, f_ = wbank.run_wideband_u8_jit(st[0], fe, seg, st[1])
+            return (b_, f_), o_
+        dsegs = [torch.from_numpy(sg).to(dev) for sg in wsegs]
+        s0 = (wbank.init_state(), fe.init_state())
+        graph_check(f"{path}_wideband", eager_wb, jit_wb,
+                    [(d,) for d in dsegs], s0, needed, ("tiled",),
+                    library=True)
+        graph_stats[f"{path}_wideband"].update(
+            turns=turns(f"{path}_wideband", {
+                "eager": (lambda st: eager_wb(st, dsegs[0])[0], s0),
+                "graphed": (lambda st: jit_wb(st, dsegs[0])[0], s0)}),
+            memory_gb=peak_memory(f"{path}_wideband",
+                                  lambda: eager_wb(s0, dsegs[0]),
+                                  lambda: jit_wb(s0, dsegs[0])))
+        del dsegs
         if args.profile:
             seg = torch.from_numpy(wsegs[0]).to(dev)
             profile_segment(torch, card, args.profile, path,
@@ -1993,16 +2249,20 @@ def main() -> None:
     env = dict(os.environ)
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
 
-    def run_cli(args_, capture, out_path, label=None):
+    def run_cli(args_, capture, out_path, label=None, eager=False):
         """`python -m real_time_sdr_tpu_torch.cli ARGS < capture > out`:
-        (stderr text, PCM bytes); fails on a non-zero exit."""
-        label = label or " ".join(args_)
+        (stderr text, PCM bytes); fails on a non-zero exit. ``eager``: the
+        CLI on the eager entries (``EAGER_CLI``)."""
+        label = (label or " ".join(args_)) + (" (eager entries)" if eager
+                                              else "")
         t0 = time.perf_counter()
+        cmd = ([sys.executable, "-c", EAGER_CLI] if eager else
+               [sys.executable, "-m", "real_time_sdr_tpu_torch.cli"])
         with open(capture, "rb") as fin, open(out_path, "wb") as fout:
             res = subprocess.run(
-                [sys.executable, "-m", "real_time_sdr_tpu_torch.cli",
-                 *args_], stdin=fin, stdout=fout, stderr=subprocess.PIPE,
-                text=True, env=env, cwd=root, timeout=300)
+                [*cmd, *args_], stdin=fin, stdout=fout,
+                stderr=subprocess.PIPE, text=True, env=env, cwd=root,
+                timeout=300)
         if res.returncode != 0:
             fail(f"CLI {label} exited {res.returncode}:\n"
                  f"{res.stderr[-3000:]}")
@@ -2052,6 +2312,32 @@ def main() -> None:
             fail(f"the CLI wrote {len(pcm)} PCM bytes, not {want}")
         print(f"CLI on {card}: {CLI_BLOCKS} blocks, {len(pcm)} PCM bytes, "
               f"PS/PI/PTY decoded")
+        # the CLI serves jit_run_segment_staged: its PCM is the eager
+        # run_segment_staged's over the same one-block groups, in process
+        rx_cli = Receiver(0, stereo=True, rds=True, device=dev)
+        st_c = rx_cli.init_state(1)
+        tail_c = st_c.frontend.iq_tail[0].cpu().numpy()
+        raw_c = np.fromfile(cap0, np.uint8).reshape(CLI_BLOCKS, -1)
+        pcm_ref = []
+        for blk_c in raw_c:
+            xp = torch.from_numpy(rx_cli.frontend.stage_segment(
+                tail_c, blk_c)).to(dev)[None]
+            st_c, o_c = rx_cli.run_segment_staged(st_c, xp, blk_c.shape[0])
+            pcm_ref.append(stereo_pcm(o_c.left, o_c.right)[0].cpu().numpy()
+                           .tobytes())
+            tail_c = blk_c[blk_c.shape[0] - tail_c.shape[0]:]
+        if b"".join(pcm_ref) != pcm:
+            fail("the CLI's PCM differs from the eager run_segment_staged "
+                 "run over the same groups")
+        print(f"CLI PCM byte-identical to an in-process eager "
+              f"run_segment_staged over the same {CLI_BLOCKS} one-block "
+              "groups")
+        del rx_cli, st_c, raw_c, pcm_ref
+        err_e, pcm_e = run_cli(["0", "r", "--stats"], cap0,
+                               os.path.join(tmp, "e0.pcm"), eager=True)
+        if pcm_e != pcm:
+            fail("the CLI on the eager entries wrote other PCM")
+        eager_runs = [cli_stats(err_e)]
         # the two upload paths in the order 0, 0, 1 after the first run's
         # default (auto = 1): per-block time and latency of each run
         runs = {"1": [cli_stats(err)]}
@@ -2066,11 +2352,20 @@ def main() -> None:
                 fail(f"--staged {staged} RDS lines differ from the first "
                      "run's")
             runs.setdefault(staged, []).append(cli_stats(err_k))
+        err_e, pcm_e = run_cli(["0", "r", "--stats"], cap0,
+                               os.path.join(tmp, "e1.pcm"), eager=True)
+        if pcm_e != pcm:
+            fail("the CLI on the eager entries wrote other PCM")
+        eager_runs.append(cli_stats(err_e))
+        runs["1 (eager entries)"] = eager_runs
         for staged, rs in runs.items():
             print(f"CLI --staged {staged} on {card}: "
                   + "; ".join(f"{r[0]:.2f} ms/block, {r[1]:.1f}x real time, "
                               f"p50 {r[2]:.1f} ms, p99 {r[3]:.1f} ms"
                               for r in rs))
+        graph_stats["cli"] = {k: [dict(ms_per_block=r[0], x_real_time=r[1],
+                                       p50_ms=r[2], p99_ms=r[3]) for r in v]
+                              for k, v in runs.items()}
         print(f"CLI --staged 0 and 1 (1 serves run_segment_staged): PCM "
               f"byte-identical, {len(rds)} RDS lines equal")
         # a --checkpoint pair over the two halves of the capture (staged):
@@ -2113,13 +2408,13 @@ def main() -> None:
                "--wide-fs", str(wide_fs), "--segment", str(BLOCKS), "--stats"]
     real = {offs.index(st["offset_hz"]): st["ps_name"] for st in stations}
 
-    def run_wb(label, extra, capture, outdir):
+    def run_wb(label, extra, capture, outdir, eager=False):
         """One wideband CLI run: (stderr lines, [PCM bytes per station])."""
         err, _ = run_cli(wb_args + ["--output-dir", outdir] + extra, capture,
                          outdir + ".stdout",
                          label=f"0 r --stations=<{WB_STATIONS} offsets> "
                          f"--wide-fs {wide_fs} --segment {BLOCKS} --stats "
-                         + label)
+                         + label, eager=eager)
         pcm = []
         for k in range(WB_STATIONS):
             with open(os.path.join(outdir, f"station_{k}.pcm"), "rb") as f:
@@ -2176,6 +2471,37 @@ def main() -> None:
         tot_b = next(ln for ln in lines_b if ln.startswith("total:")).split()
         print(f"wideband CLI --pipeline 4: PCM byte-identical; {tot_b[4]} ms "
               f"per block, {tot_b[6]} real time")
+        # on the bank's eager entry (EAGER_CLI), then graphed again: the
+        # same PCM; each run's segment times
+        lines_e, pcm_e = run_wb("", [], cap, os.path.join(tmp, "e"),
+                                eager=True)
+        if pcm_e != pcm_a:
+            fail("the wideband CLI on the eager entry wrote other PCM")
+        lines_g, pcm_g = run_wb("(again)", [], cap, os.path.join(tmp, "g"))
+        if pcm_g != pcm_a:
+            fail("the wideband CLI's second graphed run wrote other PCM")
+        wb_runs = {}
+        for form, lines_k in (("graphed", lines), ("eager", lines_e),
+                              ("graphed", lines_g)):
+            segs_ms = sorted(float(ln.split(": ")[1].split()[0])
+                             for ln in lines_k if ln.startswith("block "))
+            tot_k = next(ln for ln in lines_k
+                         if ln.startswith("total:")).split()
+            wb_runs.setdefault(form, []).append(dict(
+                ms_per_block=float(tot_k[4]),
+                x_real_time=float(tot_k[6].rstrip("x")),
+                segment_p50_ms=segs_ms[len(segs_ms) // 2],
+                segment_p99_ms=segs_ms[min(len(segs_ms) - 1,
+                                           int(len(segs_ms) * 0.99))]))
+        graph_stats["cli_wideband"] = wb_runs
+        print(f"wideband CLI, graphed and eager entries in turns (graphed, "
+              f"eager, graphed), PCM byte-identical: " + "; ".join(
+                  f"{form} {r['ms_per_block']:.2f} ms per block, "
+                  f"{r['x_real_time']:.1f}x real time, segment p50 "
+                  f"{r['segment_p50_ms']:.1f} ms, p99 "
+                  f"{r['segment_p99_ms']:.1f} ms"
+                  for form, rs in wb_runs.items() for r in rs)
+              + f"; on {card}")
 
         lines_f, pcm_f = run_wb("--wb-fir bf16", ["--wb-fir", "bf16"], cap,
                                 os.path.join(tmp, "f"))
@@ -2262,6 +2588,42 @@ def main() -> None:
             fail(f"the checkpointed run differs by {worst} LSB")
 
     # -- 8. parallel paths at full width (mode 0, type r) ---------------------
+    # 8-. run_segment_grouped: phase 4's 32 channels as 4 sub-batches of 8
+    # in one graph, against its eager form (bit for bit) and against
+    # run_segment on the whole batch: the channels never interact, but a
+    # reduction's split over the rows may follow the batch, so the audio is
+    # held to 100 dB and the RDS bits equal, and bit-identity is printed
+    gbank = ChannelBank(rx, CH)
+    gsegs = [torch.from_numpy(sg).to(dev) for sg in segs]
+    g0 = rx.init_state(CH)
+    grouped = graph_check(
+        "grouped", lambda st, x: grouped_step(rx, 8, st, x),
+        lambda st, x: gbank.run_segment_grouped(st, x, 8),
+        [(x,) for x in gsegs], g0,
+        (frontend_fused.name, fir_bank.name, fir_decimate.name),
+        ("tiled", "general"))
+    st_w, whole = g0, []
+    for x in gsegs:
+        st_w, o_w = gbank.run_segment(st_w, x)
+        whole.append((st_w, o_w))
+    same = all(torch.equal(a, b) for w, g in zip(whole, grouped)
+               for a, b in zip(leaves(w), leaves(g)))
+    g_snr = min(snr_db(getattr(w[1], rail)[c], getattr(g[1], rail)[c])
+                for w, g in zip(whole, grouped) for rail in ("left", "right")
+                for c in range(CH))
+    g_bits = all(torch.equal(w[1].rds_bits, g[1].rds_bits)
+                 and torch.equal(w[1].rds_nbits, g[1].rds_nbits)
+                 for w, g in zip(whole, grouped))
+    print(f"run_segment_grouped ({CH} ch as {CH // 8} groups of 8, "
+          f"{SEGMENTS} chained segments) against run_segment: bit-identical "
+          f"{same}, worst channel audio "
+          f"{'identical' if g_snr > 1000 else f'{g_snr:.1f} dB'}, RDS bits "
+          f"equal {g_bits}")
+    if not (g_snr > 100.0 and g_bits):
+        fail("run_segment_grouped disagrees with run_segment")
+    graph_stats["grouped"].update(bit_identical_to_run_segment=same,
+                                  worst_audio_snr_db=min(g_snr, 1e9))
+    del gbank, gsegs, grouped, whole, segs
     blk = 2 * cfg.block_size_iq
     ts_blocks, ts_shards = 2 * CLI_BLOCKS, 32
     # one 384-block capture, 11.76 s of radio, synthesized whole so that no
@@ -2617,6 +2979,7 @@ def main() -> None:
 
     if "jax" in sys.modules:
         fail("jax was imported")
+    print("graphs: " + json.dumps(graph_stats))
     kernels[fir_bank.name]["body_launches_by_path"] = bodies_by_path
     kernels[fir_decimate.name]["body_launches_by_path"] = fd_bodies_by_path
     rows = []

@@ -19,7 +19,9 @@ Layers:
   parallel — channel bank over devices, time and station sharding
   utils   — state conversion, PCM formatting, synthetic stations and
             impairments, the measurement layer, the figure functions
-            (``viz``) and the float64 oracle (``golden_chain``)
+            (``viz``), the float64 oracle (``golden_chain``) and the
+            captured CUDA graphs behind the ``jit_*`` serving entries
+            (``graphs``)
   cli, viz — the pipe CLI and the diagnostic figure sheet
             (``python -m real_time_sdr_tpu_torch.viz``)
 

@@ -19,12 +19,14 @@ without ``--cpu`` it exits with status 2 instead of running on the CPU.
 The host loop reads ``--segment`` blocks per group through the native
 ring-buffered reader, uploads the group (``--staged``: as the staged
 operand ``[tail | group]`` written into a ring of pinned host buffers, one
-asynchronous copy, served by ``Receiver.run_segment_staged``), queues the
-receiver's kernels (launches are asynchronous), and starts the PCM and RDS
-copies back into pinned memory. Up to ``--pipeline`` groups stay in flight; a
+asynchronous copy, served by ``Receiver.jit_run_segment_staged``; else
+``Receiver.jit_step``), replays the receiver's captured graph for the
+group's shape (the first group of a shape, and an EOF partial group,
+capture one; on the CPU the eager receiver runs), and starts the PCM and
+RDS copies back into pinned memory. Up to ``--pipeline`` groups stay in flight; a
 drain waits once per group on a CUDA event, then writes the PCM and feeds
 the RDS framer. The wideband loop is the same with one (S, ...) PCM tensor
-and one fetch per segment; ``--retune SEG:STATION:HZ`` re-points a station
+and one fetch per segment, served by ``ChannelBank.run_wideband_u8_jit``; ``--retune SEG:STATION:HZ`` re-points a station
 of the fused frontend between segments, ``--checkpoint`` resumes onto the
 grid the saved state was built on (its ``.rds.json`` sidecar names it),
 and ``--wb-fir {f32,bf16,bf16x2}`` sets the wideband frontend's precision
@@ -424,8 +426,9 @@ def run_wideband(args, torch, device, rx, cfg) -> int:
         t0 = time.perf_counter()
         silent = torch.full((seg_n * block_bytes,), 128, dtype=torch.uint8,
                             device=device)
-        _, wout, _ = bank.run_wideband_u8(bank.init_state(), fe, silent,
-                                          fe.init_state())   # discarded
+        # captures the segment's graph; the outputs are discarded
+        _, wout, _ = bank.run_wideband_u8_jit(bank.init_state(), fe, silent,
+                                              fe.init_state())
         pcm_of(wout).cpu()
         print(f"warmed up in {time.perf_counter() - t0:.1f} s",
               file=sys.stderr)
@@ -483,11 +486,10 @@ def run_wideband(args, torch, device, rx, cfg) -> int:
             if not g:
                 break
             t0 = time.perf_counter()
-            # an EOF partial segment runs at its exact shape: the real
-            # blocks' outputs do not depend on padding, and nothing is
-            # recompiled
+            # an EOF partial segment runs at its exact shape (the real
+            # blocks' outputs do not depend on padding): a graph of its own
             raw = np.frombuffer(buf, dtype=np.uint8, count=g * block_bytes)
-            bstate, out, fstate = bank.run_wideband_u8(
+            bstate, out, fstate = bank.run_wideband_u8_jit(
                 bstate, fe, upload(raw), fstate)
             seg_i += 1
             nbits = bits = None
@@ -644,9 +646,9 @@ def _serve(args, torch, device, rx) -> int:
         n2 = seg_n * block_bytes
         silent = torch.full((1, rx.frontend.staged_len(n2) if staged else n2),
                             128, dtype=torch.uint8, device=device)
-        _, wout = (rx.run_segment_staged(rx.init_state(1), silent, n2)
-                   if staged
-                   else rx.run_segment(rx.init_state(1), silent))  # discarded
+        # captures the group's graph; the outputs are discarded
+        _, wout = (rx.jit_run_segment_staged(rx.init_state(1), silent, n2)
+                   if staged else rx.jit_step(rx.init_state(1), silent))
         pcm_of(wout).cpu()
         print(f"warmed up in {time.perf_counter() - t0:.1f} s",
               file=sys.stderr)
@@ -736,11 +738,11 @@ def _serve(args, torch, device, rx) -> int:
     while nxt is not None:
         t0 = time.perf_counter()
         seg, t_in, g = nxt
-        # an EOF partial group runs at its exact shape: the real blocks'
-        # outputs do not depend on padding, and nothing is recompiled
+        # an EOF partial group runs at its exact shape (the real blocks'
+        # outputs do not depend on padding): a graph of its own
         x = upload(seg)[None]
-        state, out = (rx.run_segment_staged(state, x, seg.shape[0])
-                      if upload.staged else rx.run_segment(state, x))
+        state, out = (rx.jit_run_segment_staged(state, x, seg.shape[0])
+                      if upload.staged else rx.jit_step(state, x))
         pcm = pcm_of(out)
         nbits = bits = clean = None
         if framer is not None:

@@ -13,11 +13,18 @@ Channels are the leading axis of every input, output and state leaf.
 The carrier tier is 1 (the exact sequential PLL, the JAX package's and the
 CLI's default), 2 (its Newton twin) or 3 (feedforward sync, the batched
 serving path); RDS timing is the per-block comb or the tracked CDR.
+
+``jit_step``, ``jit_run_blocks`` and ``jit_run_segment_staged`` are the
+serving forms of ``step``, ``run_blocks`` and ``run_segment_staged``, as in
+the JAX package: on the card one captured CUDA graph per input shape (and
+``n2``), replayed once per call (``utils.graphs``); on the CPU the eager
+functions.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 from typing import Any, NamedTuple
 
 import torch
@@ -29,6 +36,7 @@ from real_time_sdr_tpu_torch.models.audio import MonoPath, StereoPath
 from real_time_sdr_tpu_torch.models.frontend import Frontend
 from real_time_sdr_tpu_torch.models.rds import RdsPath
 from real_time_sdr_tpu_torch.ops.fir import make_bank
+from real_time_sdr_tpu_torch.utils.graphs import GraphCache
 
 __all__ = ["ReceiverState", "ReceiverOutput", "Receiver"]
 
@@ -74,6 +82,9 @@ class Receiver(nn.Module):
         self.pll_tier = pll_tier
         self.device = resolve_device(device)
         self._replicas: dict[torch.device, Receiver] = {}
+        # the graphs of the jit_* entries and of ChannelBank's; a replica
+        # (a deep copy) starts its own
+        self.graphs = GraphCache()
         self.frontend = Frontend(cfg)
         self.audio = StereoPath(cfg, pll_tier) if stereo else MonoPath(cfg)
         self.rds_path = (RdsPath(cfg, pll_tier, timing=rds_timing)
@@ -138,6 +149,26 @@ class Receiver(nn.Module):
                              f"{blk}-byte blocks")
         demod, f_state = self.frontend.call_staged(xp_u8, n2, state.frontend)
         return self._post_frontend(demod, f_state, state)
+
+    def jit_step(self, state: ReceiverState, iq_u8: torch.Tensor):
+        """``step`` as one graph replay per call on the card (one graph per
+        input shape); ``step`` itself on the CPU."""
+        return self.graphs(self.step, ("step",), state, iq_u8)
+
+    def jit_run_segment_staged(self, state: ReceiverState,
+                               xp_u8: torch.Tensor, n2: int):
+        """``run_segment_staged`` as one graph replay per call on the card
+        (one graph per segment byte length ``n2``, as the JAX package keeps
+        one compiled program per ``n2``)."""
+        return self.graphs(
+            functools.partial(self.run_segment_staged, n2=n2),
+            ("run_segment_staged", n2), state, xp_u8)
+
+    def jit_run_blocks(self, state: ReceiverState, iq_blocks: torch.Tensor):
+        """``run_blocks`` with its whole block loop in one graph on the card
+        (the JAX package compiles the whole scan)."""
+        return self.graphs(self.run_blocks, ("run_blocks",), state,
+                           iq_blocks)
 
     def _post_frontend(self, demod: torch.Tensor, f_state,
                        state: ReceiverState):

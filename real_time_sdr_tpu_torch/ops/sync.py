@@ -87,6 +87,10 @@ class FeedforwardSync(nn.Module):
         # the estimate at FIR output k describes input k-m (Hilbert pair);
         # the smoother's extra delay applies to the slow residual only
         self.hilbert_delay = m
+        # the delay as a device scalar: a per-call torch.tensor would be a
+        # host-to-device copy, which a captured graph cannot hold
+        self.register_buffer("_hilbert_delay_t", torch.tensor(m),
+                             persistent=False)
         self.group_delay = m + (smooth_taps - 1) // 2
         fr, fsr = p._ratio
         k = np.arange(p.period, dtype=np.int64)
@@ -161,8 +165,7 @@ class FeedforwardSync(nn.Module):
             sb = sin2r * cm + cos2r * sm_
             # cos/sin(2*ramp) at trig+1 from (ce, se) at trig+1-hilbert:
             # double-angle identity + the constant offset rotation
-            delta = p.trig_angle(torch.tensor(self.hilbert_delay,
-                                              device=x.device))
+            delta = p.trig_angle(self._hilbert_delay_t)
             cph, sph = torch.cos(2.0 * delta), torch.sin(2.0 * delta)
             cos2e = ce * ce - se * se
             sin2e = 2.0 * ce * se

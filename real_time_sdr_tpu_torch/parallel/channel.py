@@ -27,9 +27,16 @@ one tree per device (``utils.state`` walks tuples, so ``save_state`` /
 ``load_state`` / ``map_state`` take it as it is); with one device everything
 is the bare tree, as before. A device may be listed twice (two replicas on
 one card).
+
+The ``*_jit`` entries and ``run_segment_grouped`` are the JAX package's
+compiled serving entries: on the card each is one captured CUDA graph per
+input shape (kept in the receiver's ``graphs``, one cache per replica),
+replayed once per call; on the CPU they run their eager functions.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -42,7 +49,7 @@ from real_time_sdr_tpu_torch.models.wideband_frontend import (
     FusedWidebandFrontend, u8_to_rails)
 from real_time_sdr_tpu_torch.utils.state import map_state
 
-__all__ = ["ChannelBank", "split_rows", "gather"]
+__all__ = ["ChannelBank", "split_rows", "gather", "grouped_step"]
 
 
 def split_rows(n: int, devices: list, what: str = "channels") -> int:
@@ -163,6 +170,27 @@ class ChannelBank:
         self._rows(segments, "segments")
         return self._each(Receiver.run_segment, state, segments)
 
+    def run_segment_grouped(self, state, segments, group: int = 32):
+        """``run_segment`` as sequential sub-batches of ``group`` channels
+        (per device), all in one graph on the card: each sub-batch's
+        working set stays at ``group`` rows. Equal to ``run_segment``: the
+        channels never interact. A ``group`` of at least the rows is one
+        ``jit_step``; one that does not divide them raises ``ValueError``."""
+        self._rows(segments, "segments")
+        group = int(group)
+        if group < 1:
+            raise ValueError(f"group must be >= 1, got {group}")
+        if group < self.per and self.per % group:
+            raise ValueError(f"group {group} does not divide the {self.per} "
+                             "channels of each device")
+
+        def call(rx: Receiver, st, seg):
+            if group >= seg.shape[0]:
+                return rx.jit_step(st, seg)
+            return rx.graphs(functools.partial(grouped_step, rx, group),
+                             ("run_segment_grouped", group), st, seg)
+        return self._each(call, state, segments)
+
     def run_segment_demod(self, state, demod):
         """demod: (C, B*if_block) float32 from an external frontend."""
         self._rows(demod, "demod")
@@ -180,8 +208,7 @@ class ChannelBank:
         """Wideband segment through the two-stage path: the channelizer's
         u8 station streams (``call_u8``, ending in the ``chan_epilogue``
         kernel on the card) feed ``run_segment``. Returns
-        ``(state, out, cstate)``. The JAX counterpart is
-        ``run_channelized_jit``."""
+        ``(state, out, cstate)``; ``run_channelized_jit`` is its graph."""
         self._one_device("run_channelized")
         u8, cstate = ch.call_u8(i_wide, q_wide, cstate)
         state, out = self.run_segment(state, u8)
@@ -192,17 +219,16 @@ class ChannelBank:
         """Wideband segment through the fused frontend: one wide-rate matmul
         emits every station's IF demod, which feeds ``run_segment_demod``.
         The frontend reads its own weight buffers, which ``retune`` updates
-        in stream order. The JAX counterpart is
-        ``run_channelized_fused_jit``."""
+        in stream order; ``run_channelized_fused_jit`` is its graph."""
         self._one_device("run_channelized_fused")
         demod, wstate = wf(i_wide, q_wide, wstate)
         state, out = self.run_segment_demod(state, demod)
         return state, out, wstate
 
     def run_wideband(self, state, fe, i_wide, q_wide, festate):
-        """Serving entry for either wideband frontend on f32 rails,
-        dispatching on the object ``make_wideband_frontend`` built. The JAX
-        counterpart is ``run_wideband_jit``."""
+        """Either wideband frontend on f32 rails, dispatching on the object
+        ``make_wideband_frontend`` built; ``run_wideband_jit`` is its
+        graph."""
         if isinstance(fe, FusedWidebandFrontend):
             return self.run_channelized_fused(state, fe, i_wide, q_wide,
                                               festate)
@@ -213,7 +239,60 @@ class ChannelBank:
     def run_wideband_u8(self, state, fe, raw_u8: torch.Tensor, festate):
         """Live-ingest entry: the interleaved raw uint8 capture (2N,) goes to
         the device as bytes and is split into rails there
-        (``u8_to_rails``), then as ``run_wideband``. The JAX counterpart is
-        ``run_wideband_u8_jit``."""
+        (``u8_to_rails``), then as ``run_wideband``;
+        ``run_wideband_u8_jit`` is its graph."""
         i_wide, q_wide = u8_to_rails(raw_u8)
         return self.run_wideband(state, fe, i_wide, q_wide, festate)
+
+    # -- the serving entries: one graph per frontend and input shape --------
+    # The frontend is part of the key and the graph reads its buffers where
+    # they are, so a FusedWidebandFrontend.retune, which rewrites them in
+    # place, takes effect at the next replay.
+
+    def _jit(self, name: str, fn, fe, *args):
+        self._one_device(name)
+        return self.rx.graphs(fn, (name, id(fe)), *args)
+
+    def run_channelized_jit(self, state, ch: Channelizer, i_wide, q_wide,
+                            cstate):
+        """``run_channelized`` as one graph replay per call on the card."""
+        return self._jit(
+            "run_channelized_jit",
+            lambda s, i, q, c: self.run_channelized(s, ch, i, q, c),
+            ch, state, i_wide, q_wide, cstate)
+
+    def run_channelized_fused_jit(self, state, wf: FusedWidebandFrontend,
+                                  i_wide, q_wide, wstate):
+        """``run_channelized_fused`` as one graph replay per call on the
+        card."""
+        return self._jit(
+            "run_channelized_fused_jit",
+            lambda s, i, q, w: self.run_channelized_fused(s, wf, i, q, w),
+            wf, state, i_wide, q_wide, wstate)
+
+    def run_wideband_jit(self, state, fe, i_wide, q_wide, festate):
+        """``run_wideband`` as one graph replay per call on the card."""
+        return self._jit(
+            "run_wideband_jit",
+            lambda s, i, q, f: self.run_wideband(s, fe, i, q, f),
+            fe, state, i_wide, q_wide, festate)
+
+    def run_wideband_u8_jit(self, state, fe, raw_u8: torch.Tensor, festate):
+        """``run_wideband_u8`` as one graph replay per call on the card:
+        the deinterleave, the frontend and the bank in one graph."""
+        return self._jit(
+            "run_wideband_u8_jit",
+            lambda s, raw, f: self.run_wideband_u8(s, fe, raw, f),
+            fe, state, raw_u8, festate)
+
+
+def grouped_step(rx: Receiver, group: int, state: ReceiverState,
+                 segments: torch.Tensor):
+    """The eager form of ``ChannelBank.run_segment_grouped`` on one
+    device: ``rx.step`` over consecutive ``group``-row sub-batches, the
+    states and outputs joined again on the channel axis."""
+    parts = [rx.step(map_state(state, lambda t: t[k:k + group]),
+                     segments[k:k + group])
+             for k in range(0, segments.shape[0], group)]
+    return map_state(parts[0], lambda *leaves: torch.cat(leaves),
+                     *parts[1:])

@@ -1084,3 +1084,181 @@ def test_wideband_precision_on_noise_card_matches_cpu(card, path, dtype):
         assert _snr(c[0], g[0]) > 90.0
         if path == "fused":
             assert _snr(c[1], g[1]) > NOISE_DEMOD_DB[dtype]
+
+
+# -- the serving entries as captured CUDA graphs ------------------------------
+
+def _tree_leaves(tree):
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [x for t in tree for x in _tree_leaves(t)]
+
+
+def _trees_equal(a, b):
+    la, lb = _tree_leaves(a), _tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _graph_rows(rx, channels, n_blocks, seed):
+    """(channels, n_blocks blocks) u8 of one station with shifts, on the
+    card."""
+    iq, _ = synth.station_iq(rx.cfg, n_blocks + 2, ps_name="GRAPHCRD")
+    pairs = iq.reshape(-1, 2)
+    n = n_blocks * 2 * rx.cfg.block_size_iq
+    rows = np.stack([np.roll(pairs, -(seed + 811 * c), axis=0).reshape(-1)[:n]
+                     for c in range(channels)])
+    return torch.from_numpy(rows).cuda()
+
+
+@pytest.mark.parametrize("tier", [1, 2, 3])
+def test_graphed_receiver_entries_equal_eager(card, tier):
+    """jit_step, jit_run_segment_staged and jit_run_blocks replay captured
+    graphs: three chained calls of each (4 channels x 2 blocks) equal the
+    eager functions in every output leaf and the state, the kernels'
+    launch counts rise as eagerly, and what a call returned is unchanged
+    after the later calls."""
+    from real_time_sdr_tpu_torch.utils import graphs
+    rx = Receiver(0, stereo=True, rds=True, pll_tier=tier, device="cuda")
+    blk = 2 * rx.cfg.block_size_iq
+    x = _graph_rows(rx, 4, 6, seed=tier)
+    segs = [x[:, k * 2 * blk:(k + 1) * 2 * blk].contiguous()
+            for k in range(3)]
+    tl = rx.frontend.tail_len
+    n2 = 2 * blk
+
+    def staged_cells(st0):
+        prev, cells = st0.frontend.iq_tail, []
+        for s in segs:
+            cells.append(torch.cat([prev, s], 1).contiguous())
+            prev = s[:, n2 - tl:]
+        return cells
+
+    s0 = rx.init_state(4)
+    cases = {
+        "step": (rx.step, rx.jit_step, [(s,) for s in segs]),
+        "staged": (rx.run_segment_staged, rx.jit_run_segment_staged,
+                   [(c, n2) for c in staged_cells(s0)]),
+        "blocks": (rx.run_blocks, rx.jit_run_blocks,
+                   [(s.reshape(4, 2, blk),) for s in segs]),
+    }
+    for name, (eager, jit, args) in cases.items():
+        c0 = graphs.launch_counts()
+        st, ref = s0, []
+        for a in args:
+            st, out = eager(st, *a)
+            ref.append((st, out))
+        c1 = graphs.launch_counts()
+        st, got = s0, []
+        for a in args:
+            st, out = jit(st, *a)
+            got.append((st, out, [t.clone() for t in _tree_leaves((st,
+                                                                   out))]))
+        c2 = graphs.launch_counts()
+        torch.cuda.synchronize()
+        for (st_e, out_e), (st_g, out_g, _) in zip(ref, got):
+            assert _trees_equal((st_e, out_e), (st_g, out_g)), name
+        for st_g, out_g, kept in got:
+            assert all(torch.equal(a, b) for a, b in
+                       zip(_tree_leaves((st_g, out_g)), kept)), name
+        assert {k: c1[k] - c0[k] for k in c0} == {
+            k: c2[k] - c1[k] for k in c0}, name
+        assert c2[("frontend_fused", None)] > c1[("frontend_fused", None)]
+    assert len(rx.graphs) == 3
+
+
+def test_graphed_bank_entries_equal_eager(card):
+    """run_segment_grouped (8 channels, group 4) equals its eager form bit
+    for bit and run_segment to > 100 dB with the RDS bits equal (a
+    reduction's split over the rows may follow the batch on the card);
+    run_wideband_u8_jit through both frontends (4 stations at 9.6 MS/s,
+    two chained one-block segments) equals its eager function."""
+    from real_time_sdr_tpu_torch.models.wideband_frontend import \
+        FusedWidebandFrontend
+    from real_time_sdr_tpu_torch.parallel.channel import grouped_step
+    rx, _ = card
+    bank = ChannelBank(rx, 8)
+    x = _graph_rows(rx, 8, 2, seed=5)
+    s0 = bank.init_state()
+    eager = grouped_step(rx, 4, s0, x)
+    for _ in range(2):
+        assert _trees_equal(bank.run_segment_grouped(s0, x, group=4), eager)
+    _, whole = bank.run_segment(s0, x)
+    for rail in ("left", "right"):
+        for c in range(8):
+            assert _snr(getattr(whole, rail)[c],
+                        getattr(eager[1], rail)[c]) > 100.0
+    assert torch.equal(whole.rds_bits, eager[1].rds_bits)
+    assert torch.equal(whole.rds_nbits, eager[1].rds_nbits)
+    offs = [-450_000, -150_000, 150_000, 450_000]
+    scene = [dict(offset_hz=o, ps_name=f"GR-{k}    ", pi=0x7200 + k)
+             for k, o in enumerate(offs)]
+    wide_fs = 4 * rx.cfg.rf_fs
+    iw, qw, _ = synth.wideband_iq(rx.cfg, wide_fs, scene, 2)
+    raw = np.empty(2 * len(iw), np.float32)
+    raw[0::2], raw[1::2] = iw, qw
+    raw = torch.from_numpy(np.clip(np.round(128 + 127 * raw), 0, 255)
+                           .astype(np.uint8)).cuda()
+    half = raw.shape[0] // 2
+    wb = ChannelBank(rx, 4)
+    for fe in (Channelizer(rx.cfg, wide_fs, offs),
+               FusedWidebandFrontend(rx.cfg, wide_fs, offs)):
+        se, fse = wb.init_state(), fe.init_state()
+        sg, fsg = se, fse
+        for seg in (raw[:half], raw[half:]):
+            se, oe, fse = wb.run_wideband_u8(se, fe, seg, fse)
+            sg, og, fsg = wb.run_wideband_u8_jit(sg, fe, seg, fsg)
+            assert _trees_equal((se, oe, fse), (sg, og, fsg)), type(fe)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "bf16x2"])
+def test_retune_between_replays_takes_effect(card, dtype):
+    """A retune of the fused frontend between two replays rewrites the
+    weight buffers the graph reads: the next replay equals the eager run
+    on the retuned grid, and differs from a replay on the old grid."""
+    from real_time_sdr_tpu_torch.models.wideband_frontend import \
+        FusedWidebandFrontend
+    rx, _ = card
+    offs = [-450_000, -150_000, 150_000, 450_000]
+    wide_fs = 4 * rx.cfg.rf_fs
+    scene = [dict(offset_hz=150_000, ps_name="RETUNE  ", pi=0x7300)]
+    iw, qw, _ = synth.wideband_iq(rx.cfg, wide_fs, scene, 2)
+    raw = np.empty(2 * len(iw), np.float32)
+    raw[0::2], raw[1::2] = iw, qw
+    raw = torch.from_numpy(np.clip(np.round(128 + 127 * raw), 0, 255)
+                           .astype(np.uint8)).cuda()
+    half = raw.shape[0] // 2
+    wb = ChannelBank(rx, 4)
+    fe = FusedWidebandFrontend(rx.cfg, wide_fs, offs, compute_dtype=dtype)
+    ptrs = [fe.w.data_ptr(), fe.pc.data_ptr(), fe.ps.data_ptr()]
+    st, o0, fst = wb.run_wideband_u8_jit(wb.init_state(), fe, raw[:half],
+                                         fe.init_state())
+    _, old, _ = wb.run_wideband_u8_jit(st, fe, raw[half:], fst)
+    fe.retune(0, 150_000)
+    assert [fe.w.data_ptr(), fe.pc.data_ptr(), fe.ps.data_ptr()] == ptrs
+    _, got, _ = wb.run_wideband_u8_jit(st, fe, raw[half:], fst)
+    _, want, _ = wb.run_wideband_u8(st, fe, raw[half:], fst)
+    assert _trees_equal(got, want)
+    assert not torch.equal(got.left[0], old.left[0])
+    assert torch.equal(got.left[1:], old.left[1:])
+
+
+def test_capture_of_a_host_sync_raises(card):
+    """A function that reads a value back on the host (.item()) cannot be
+    captured: the cache raises GraphCaptureError, keeps no graph, and does
+    not run the function eagerly in its place; the card works on."""
+    from real_time_sdr_tpu_torch.utils.graphs import (GraphCache,
+                                                      GraphCaptureError)
+    cache, runs = GraphCache(), []
+
+    def reads_back(x):
+        runs.append(1)
+        return x * float((x * 2).sum().item())
+
+    x = torch.ones(4, device="cuda")
+    with pytest.raises(GraphCaptureError, match="item"):
+        cache(reads_back, ("reads_back",), x)
+    assert len(cache) == 0 and len(runs) == 2     # warm-up, capture
+    assert torch.ones(2, device="cuda").sum().item() == 2.0
