@@ -94,7 +94,14 @@ non-zero on failure:
    operand on the card (``turns``: dispatch and wall ms) and one call's peak
    memory eager and graphed; the roofline
    report (``utils.logging.speed_of_light_report``) at 32 x 12, whose
-   kernel rows must equal phase 3's bounds within 1 %; warm segments are
+   kernel rows must equal phase 3's bounds within 1 %; the channel bank's
+   own entries (``ChannelBank.step`` on one block per channel,
+   ``run_segment``, ``run`` over the 12 blocks, ``run_segment_demod`` on
+   the frontend's demod) and the bench digest steps
+   (``benchkit.digest_step``, ``digest_step_staged`` on the staged cells),
+   each through ``graph_check`` against its eager form and ``graph_times``
+   (eager and graphed calls in turns, each form's device busy and idle
+   share, peak memory); warm segments are
    timed for the aggregate real-time multiple; then the same 32 x 12
    segments
    at the default tier 1 (``pll_scan`` launches rise, PS/PI decode, warm
@@ -136,7 +143,12 @@ non-zero on failure:
    the f32 run's (the share of bytes that differ and by how many LSB,
    printed), the RDS bits of segments 1-2 from the f32 run's carried state
    against the f32 run's (equal, or the count that differ, printed), warm
-   segments beside the f32 run's;
+   segments beside the f32 run's. Then (5b) the JAX package's +20 dB
+   adjacent-channel interferer (a weak station at -400 kHz beside one 10x
+   louder at -200 kHz, 26 blocks at 9.6 MS/s, tier 1) through the
+   two-stage frontend at f32 and bf16 and the fused one at f32, bf16 and
+   bf16x2 into the graphed bank (``run_segment`` / ``run_segment_demod``):
+   each station's left tone within 10 Hz, its PS and PI exact;
 6. CLI: ``python -m real_time_sdr_tpu_torch.cli 0 r --stats`` in a
    subprocess with its defaults (tier 1, comb timing, pinned staged
    upload, one group in flight) on a 192-block synthetic capture (48
@@ -199,7 +211,12 @@ non-zero on failure:
    two-stage segment, and one ``retune`` of the last station (second
    shard) onto slot 32's transmitter that rewrites only the second
    shard's weights, decodes slot 32's PS there and leaves the first
-   shard's outputs byte-identical;
+   shard's outputs byte-identical, replaying the shards' graphs (no new
+   graph). Every run of phase 8 is a graph replay: the exact, tracked
+   (PS/PI decoded; its first call captures the 384-step decode loop),
+   approximate and joint time-sharded runs against their eager form
+   (``time_shard._sharded_run``) and each shard's wideband step against
+   ``_step_one``, through ``graph_check`` and ``graph_times``;
 9. the diagnostic entry point at full width: ``AltRdsReceiver(0,
    device="cuda").decode`` on phase 3's 32-block station (PS, PI, >= 5
    groups, the Costas track within 1.5 Hz of the true 11.4 Hz, bits equal
@@ -207,7 +224,10 @@ non-zero on failure:
    and ``costas_scan`` launched once each; warm decodes timed, median of
    5, in seconds of radio per wall second; the host split of a warm
    decode, median of 5: upload, frontend, ``_device_chain``, the fetches
-   and ``SyncByOffsetDecoder.feed``; one warm decode under torch.profiler:
+   and ``SyncByOffsetDecoder.feed``, eager, and graphed with the replay of
+   the frontend and the chain in place of both; the device half through
+   ``graph_check`` and the whole decode eager and graphed through
+   ``graph_times``; one warm decode under torch.profiler:
    device busy, idle share and the top 10 device ops); then in subprocesses ``python
    -m real_time_sdr_tpu_torch.viz 0 --out D --alt --golden`` (the default
    24 blocks: every file, ``alt path: PS='VIZ-DEMO'``, each ``golden SNR``
@@ -562,15 +582,17 @@ def loop_checks(torch, np, card, sm_mhz, alt_bb, alt_mu0, mm_gain):
     return out
 
 
-def alt_decode_split(torch, np, alt_rx, iq, bits):
+def alt_decode_split(torch, np, alt_rx, iq, bits, graphed):
     """The host split of a warm ``AltRdsReceiver.decode``: its steps as
-    decode takes them (the upload, the frontend, ``_device_chain``, the
-    ``.cpu()`` fetches, ``SyncByOffsetDecoder.feed``), each on the host
-    clock up to a synchronize, median of 5 ms each. The bits must equal
-    decode's. Prints the split; returns {step: ms}."""
+    decode takes them (the upload; eager: the frontend and
+    ``_device_chain``, graphed: the replay of both; the ``.cpu()``
+    fetches, ``SyncByOffsetDecoder.feed``), each on the host clock up to a
+    synchronize, median of 5 ms each. The bits must equal decode's. Prints
+    the split; returns {step: ms}."""
     from real_time_sdr_tpu_torch.models.rds_framing import \
         SyncByOffsetDecoder
-    steps = ("upload", "frontend", "device_chain", "fetch", "feed")
+    steps = (("upload", "replay", "fetch", "feed") if graphed else
+             ("upload", "frontend", "device_chain", "fetch", "feed"))
     times = {k: [] for k in steps}
     for _ in range(5):
         t = [time.perf_counter()]
@@ -580,10 +602,15 @@ def alt_decode_split(torch, np, alt_rx, iq, bits):
             t.append(time.perf_counter())
         x = torch.from_numpy(np.ascontiguousarray(iq)).to(alt_rx.device)
         mark()
-        demod, _ = alt_rx.frontend(x[None], alt_rx.frontend.init_state(1))
-        mark()
-        bb, syms, derot, freq_log, bits_t, n_valid = alt_rx._device_chain(
-            demod[0])
+        if graphed:
+            bb, syms, derot, freq_log, bits_t, n_valid = alt_rx.graphs(
+                alt_rx._device_half, ("decode",), x[None])
+        else:
+            demod, _ = alt_rx.frontend(x[None],
+                                       alt_rx.frontend.init_state(1))
+            mark()
+            bb, syms, derot, freq_log, bits_t, n_valid = \
+                alt_rx._device_chain(demod[0])
         mark()
         nv = int(n_valid)
         bits_np = bits_t.cpu().numpy()[:max(0, nv - 1)]
@@ -598,11 +625,33 @@ def alt_decode_split(torch, np, alt_rx, iq, bits):
         fail("the alternative decode's host split gave other bits than "
              "decode")
     split = {k: statistics.median(v) for k, v in times.items()}
-    print("alternative decode, host split (median of 5, host clock up to a "
-          "synchronize): " + ", ".join(f"{k} {v:.3f} ms"
-                                       for k, v in split.items())
+    print(f"alternative decode, {'graphed' if graphed else 'eager'}, host "
+          "split (median of 5, host clock up to a synchronize): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
           + f"; sum {sum(split.values()):.3f} ms")
     return split
+
+
+def device_busy_ms(torch, fn) -> float:
+    """Device busy ms of one call of fn up to a synchronize: the self device
+    time of every device op torch.profiler records (a graph replay's
+    kernels among them), in the second of two profiled calls (a window's
+    first records can go missing)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()             # the recorded window: the second call
+        fn()
+        torch.cuda.synchronize()
+    # the step's own annotation spans the window on the device: not work
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")) / 1e3
 
 
 def profile_segment(torch, card, path, name, run, run_ms, top=0):
@@ -722,7 +771,7 @@ def main() -> None:
                                                               gather,
                                                               grouped_step)
         from real_time_sdr_tpu_torch.parallel.time_shard import (
-            time_sharded_run, time_sharded_run_bank)
+            _sharded_run, time_sharded_run, time_sharded_run_bank)
         from real_time_sdr_tpu_torch.parallel.wideband import (
             ShardedFusedWideband, ShardedWideband)
         from real_time_sdr_tpu_torch.utils import benchkit, synth
@@ -1564,7 +1613,8 @@ def main() -> None:
         leaves that differ are printed and held to the gates instead:
         every float leaf > 90 dB against eager, integer leaves equal.
         Also records what the new graph holds: its pool and static buffers
-        stay reserved after the allocator's cache is emptied. Returns the
+        stay reserved after the allocator's cache is emptied, and each
+        form's first call (the graphed one's is its capture). Returns the
         graphed chain's [(state, *outputs)]."""
         eager(st0, *calls[0])
         torch.cuda.synchronize()
@@ -1578,13 +1628,17 @@ def main() -> None:
             fail(f"{path}: the eager path syncs with the host: {e}")
         torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
-        chains, counts = {}, {}
+        chains, counts, first_ms = {}, {}, {}
         for form, fn in (("eager", eager), ("graphed", jit)):
             reset_counts()
             st, res = st0, []
             for a in calls:
+                t_call = time.perf_counter()
                 st, *out = fn(st, *a)
                 res.append((st, *out))
+                if form not in first_ms:
+                    torch.cuda.synchronize()
+                    first_ms[form] = (time.perf_counter() - t_call) * 1e3
             torch.cuda.synchronize()
             chains[form] = res
             counts[form] = ({k.name: k.launches for k in KERNELS},
@@ -1601,7 +1655,9 @@ def main() -> None:
               f"captures) against eager: every output leaf and the state "
               f"torch.equal {not bad}; launch counts equal "
               f"{counts['eager'] == counts['graphed']}; eager warm call "
-              "clean under set_sync_debug_mode('error')")
+              "clean under set_sync_debug_mode('error'); first call eager "
+              f"{first_ms['eager']:.1f} ms, graphed (warm-up and capture) "
+              f"{first_ms['graphed']:.1f} ms")
         for k, i, a, b in bad:
             diff = (f"{snr_db(a, b):.1f} dB" if a.is_floating_point() else
                     f"{int((a != b).sum())} of {a.numel()} differ")
@@ -1617,7 +1673,8 @@ def main() -> None:
         del chains["eager"], bad
         torch.cuda.empty_cache()
         held = (torch.cuda.memory_reserved() - reserved0) / 1e9
-        graph_stats[path] = dict(graph_holds_gb=held)
+        graph_stats[path] = dict(graph_holds_gb=held,
+                                 first_call_ms=first_ms)
         print(f"{path} graph: {held:.3f} GB more device memory reserved "
               "after emptying the cache than before its capture (its pool "
               "and static buffers, and the graphed chain's results)")
@@ -1672,6 +1729,28 @@ def main() -> None:
               f"{out['reserved']:.3f} GB; on {card}")
         return out
 
+    def graph_times(path, eager_step, graphed_step, st0, reps=8):
+        """The numbers of a graphed path beside its eager form, into
+        ``graph_stats[path]``: warm calls in turns (``turns``: the host's
+        time to dispatch and the wall, each form chaining its state
+        through ``step(state) -> state``), each form's device busy in one
+        profiled call and its idle share of the median wall, and one
+        call's peak memory (``peak_memory``)."""
+        tr = turns(path, {"eager": (eager_step, st0),
+                          "graphed": (graphed_step, st0)}, reps)
+        busy = {form: device_busy_ms(torch, lambda: step(st0))
+                for form, step in (("eager", eager_step),
+                                   ("graphed", graphed_step))}
+        idle = {form: 1.0 - busy[form] / tr[form][1] for form in busy}
+        print(f"{path} device busy (torch.profiler, one warm call): "
+              + "; ".join(f"{form} {busy[form]:.3f} ms, idle share "
+                          f"{idle[form]:.2f} of the median wall"
+                          for form in busy) + f"; on {card}")
+        graph_stats[path].update(
+            turns=tr, device_busy_ms=busy, idle_share=idle,
+            memory_gb=peak_memory(path, lambda: eager_step(st0),
+                                  lambda: graphed_step(st0)))
+
     def staged_path(segs_p, st0):
         """Host-staged ingest at the flagship shape. The segments' staged
         cells (``benchkit.stage_cells``: pinned host memory, asynchronous
@@ -1710,9 +1789,9 @@ def main() -> None:
                 and all(torch.equal(a, b)
                         for a, b in zip(leaves(st_s), leaves(st_ref))))
         got, want = by_path["mode0_staged"], by_path["mode0"]
-        d_u = benchkit.digest_step(rx)(st0,
-                                       torch.from_numpy(segs_p[0]).to(dev))[1]
-        d_s = benchkit.digest_step_staged(rx, n2)(st0, cells[0])[1]
+        d_u = benchkit._digest_fn(rx, st0,
+                                  torch.from_numpy(segs_p[0]).to(dev))[1]
+        d_s = benchkit._digest_staged_fn(rx, n2, st0, cells[0])[1]
         print(f"mode0 staged: {SEGMENTS} chained segments of {CH} ch x "
               f"{BLOCKS} blk (staged from pinned stage_cells, unstaged, "
               f"staged) against {SEGMENTS} unstaged calls: every output "
@@ -1857,6 +1936,44 @@ def main() -> None:
     vs_cpu("mode0", rx, segs, outs, states)
     cells = staged_path(segs, states[-1])
     n2_0 = segs[0].shape[1]
+    # 4-. the bank's own entries and the bench digest steps at 32 x 12,
+    # each against its eager form: step (one block per channel) and
+    # run_segment through the receiver's jit_step, run (the 12 blocks as 12
+    # one-block steps in one graph), run_segment_demod (the frontend's
+    # demod of each segment), digest_step and digest_step_staged (phase 4's
+    # staged cells); then each form's warm calls in turns, device busy and
+    # memory
+    bank = ChannelBank(rx, CH)
+    blk = 2 * cfg.block_size_iq
+    dsegs = [torch.from_numpy(sg).to(dev) for sg in segs]
+    f_st, demods = states[-1].frontend, []
+    for d in dsegs:
+        dm, f_st = rx.frontend(d, f_st)
+        demods.append(dm)
+    full = (frontend_fused.name, fir_bank.name, fir_decimate.name)
+    for path, eager_f, jit_f, calls, needed in (
+            ("bank_step", bank._step, bank.step,
+             [(d[:, :blk].contiguous(),) for d in dsegs], full),
+            ("bank_run_segment", bank._step, bank.run_segment,
+             [(d,) for d in dsegs], full),
+            ("bank_run", bank._run, bank.run,
+             [(d.reshape(CH, BLOCKS, blk).transpose(0, 1).contiguous(),)
+              for d in dsegs], full),
+            ("bank_run_segment_demod", bank._run_segment_demod,
+             bank.run_segment_demod, [(dm,) for dm in demods],
+             (fir_bank.name, fir_decimate.name)),
+            ("digest", lambda st, x: benchkit._digest_fn(rx, st, x),
+             benchkit.digest_step(rx), [(d,) for d in dsegs], full),
+            ("digest_staged",
+             lambda st, x: benchkit._digest_staged_fn(rx, n2_0, st, x),
+             benchkit.digest_step_staged(rx, n2_0), [(c,) for c in cells],
+             full)):
+        graph_check(path, eager_f, jit_f, calls, states[-1], needed,
+                    ("tiled", "general"))
+        graph_times(path, lambda st, f=eager_f, a=calls[0]: f(st, *a)[0],
+                    lambda st, f=jit_f, a=calls[0]: f(st, *a)[0],
+                    states[-1])
+    del bank, dsegs, demods, f_st
     med, h2d_med, state = warm("mode0", rx, states[-1], segs, seg_ms, 10)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
           f"GB on {card}")
@@ -2243,6 +2360,62 @@ def main() -> None:
             wb_prec[f"{path}_{dt}"] = row
     print("wideband precisions: " + json.dumps(wb_prec))
     del wbank
+
+    # 5b. the +20 dB adjacent-channel interferer, the JAX package's case
+    # (tests/test_channelizer.py, tests/test_wideband_fused.py): a weak
+    # station at -400 kHz beside one 10x louder 200 kHz away, 26 blocks at
+    # 9.6 MS/s, tier 1, through each frontend at each precision into the
+    # graphed bank (run_segment, run_segment_demod): each station's left
+    # tone within 10 Hz, its PS and PI exact
+    int_st = [dict(offset_hz=-400_000, ps_name="WEAK-OK ", pi=0x3E3E, pty=4,
+                   tone_left=700.0, tone_right=700.0, amp=1.0),
+              dict(offset_hz=-200_000, ps_name="LOUD-ADJ", pi=0x4F4F, pty=8,
+                   tone_left=1800.0, tone_right=1800.0, amp=10.0)]
+    int_fs, int_offs = 4 * cfg.rf_fs, [st["offset_hz"] for st in int_st]
+    iw, qw, _ = synth.wideband_iq(cfg, int_fs, int_st, 26)
+    iw, qw = torch.from_numpy(iw).to(dev), torch.from_numpy(qw).to(dev)
+    rx_i = Receiver(0, stereo=True, rds=True, pll_tier=1, device=dev)
+    ibank = ChannelBank(rx_i, 2)
+    interferer = {}
+    for path, dt in (("two_stage", "f32"), ("two_stage", "bf16"),
+                     ("fused", "f32"), ("fused", "bf16"),
+                     ("fused", "bf16x2")):
+        if path == "two_stage":
+            fe_i = Channelizer(cfg, int_fs, int_offs, compute_dtype=dt,
+                               device=dev)
+            u8, _ = fe_i.call_u8(iw, qw, fe_i.init_state())
+            _, out = ibank.run_segment(ibank.init_state(), u8)
+        else:
+            fe_i = FusedWidebandFrontend(cfg, int_fs, int_offs,
+                                         compute_dtype=dt, device=dev)
+            demod, _ = fe_i(iw, qw, fe_i.init_state())
+            _, out = ibank.run_segment_demod(ibank.init_state(), demod)
+        bits, nbits = out.rds_bits.cpu().numpy(), out.rds_nbits.cpu().numpy()
+        row = []
+        for k, (st, tone_hz) in enumerate(zip(int_st, (700.0, 1800.0))):
+            left = out.left[k].cpu().numpy()
+            left = left[len(left) // 3:]
+            sp = np.abs(np.fft.rfft(left * np.hanning(len(left))))
+            tone = float(np.fft.rfftfreq(len(left), 1 / cfg.audio_fs)[
+                sp.argmax()])
+            ev = decode(RdsFramer, bits, nbits, k)
+            row.append(dict(station=st["ps_name"], tone_hz=tone,
+                            ps=ev.ps_name, pi=ev.pi))
+            if not (abs(tone - tone_hz) < 10 and ev.ps_name == st["ps_name"]
+                    and ev.pi == st["pi"]):
+                fail(f"interferer [{path}, {dt}]: station {k} gave tone "
+                     f"{tone:.1f} Hz, PS {ev.ps_name!r}, PI "
+                     f"{ev.pi and hex(ev.pi)}")
+        interferer[f"{path}_{dt}"] = row
+        print(f"interferer [{path}, {dt}], 26 blocks through the graphed "
+              f"bank: " + "; ".join(
+                  f"{r['station']!r} tone {r['tone_hz']:.1f} Hz, PS "
+                  f"{r['ps']!r}, PI {hex(r['pi'])}" for r in row))
+    print(f"interferer: {len(rx_i.graphs)} graphs (the bank's run_segment "
+          "and run_segment_demod) served every frontend and precision")
+    if len(rx_i.graphs) != 2:
+        fail("the interferer's bank did not replay its two graphs")
+    del rx_i, ibank, fe_i, iw, qw
 
     # -- 6. the pipe CLI, in a subprocess, at its defaults --------------------
     root = os.path.dirname(os.path.abspath(__file__))
@@ -2651,8 +2824,30 @@ def main() -> None:
             fr.feed(bits[b, :nbits[b]])
         return fr.events
 
+    def sharded_eager(rx_, x, shards, exact=None):
+        """The eager form of time_sharded_run on this card."""
+        return map_state(_sharded_run(rx_, x[None], shards, 1, exact,
+                                      [[rx_.device]], None),
+                         lambda t: t[0])
+
+    def sharded_graph_check(path, eager_f, jit_f, x, needed, reps=4):
+        """A time-sharded run (no state) through graph_check and
+        graph_times; returns the graphed output."""
+        none = torch.zeros((), device=dev)
+        out = graph_check(path, lambda st, x_: (st, eager_f(x_)),
+                          lambda st, x_: (st, jit_f(x_)), [(x,)], none,
+                          needed, ("tiled", "general"))[0][1]
+        graph_times(path, lambda st: (eager_f(x), st)[1],
+                    lambda st: (jit_f(x), st)[1], none, reps)
+        return out
+
     # 8a. exact time sharding of one station (tier 3): the shards are the
-    # 32 rows of one batch, against the sequential receiver on one row
+    # 32 rows of one batch, against the sequential receiver on one row;
+    # graph_check captures the run's graph, the runs after it replay it
+    full = (frontend_fused.name, fir_bank.name, fir_decimate.name)
+    sharded_graph_check(
+        "time_sharded", lambda x: sharded_eager(rx, x, ts_shards),
+        lambda x: time_sharded_run(rx, x, ts_shards), long_iq, full)
     reset_counts()
     ts_out, ts_first_ms = timed(lambda: time_sharded_run(
         rx, long_iq, ts_shards, overlap=1))
@@ -2671,7 +2866,7 @@ def main() -> None:
     print(f"time sharding, exact (tier 3): {ts_blocks} blocks "
           f"({long_iq.numel() / 1e6:.1f} MB u8, {radio_ts:.2f} s of radio) "
           f"as {ts_shards} shards x {ts_blocks // ts_shards} blocks, overlap "
-          f"1: first run {ts_first_ms:.1f} ms, warm runs "
+          f"1: graph replays {ts_first_ms:.1f}, "
           f"{', '.join(f'{t:.1f}' for t in ts_warm)} ms (median "
           f"{radio_ts / (ts_ms / 1e3):.1f}x real time); sequential "
           f"run_blocks on one row {seq_ms:.1f} ms "
@@ -2686,12 +2881,30 @@ def main() -> None:
         fail("exact time sharding disagrees with the sequential receiver")
     del ts_out, seq_out
 
+    # the tracked symbol timing: the global decode is a loop over the 384
+    # blocks, captured as 384 steps (the first graphed call's time)
+    rx_t = Receiver(0, stereo=True, rds=True, pll_tier=3,
+                    rds_timing="tracked", device=dev)
+    tr_out = sharded_graph_check(
+        "time_sharded_tracked", lambda x: sharded_eager(rx_t, x, ts_shards),
+        lambda x: time_sharded_run(rx_t, x, ts_shards), long_iq, full)
+    ev = decode_stream(tr_out.rds_bits, tr_out.rds_nbits)
+    print(f"time sharding, exact, tracked timing: PS {ev.ps_name!r}, PI "
+          f"{ev.pi and hex(ev.pi)}")
+    if not (ev.ps_name == PS and ev.pi == PI):
+        fail("the tracked time-sharded run did not decode PS/PI")
+    del rx_t, tr_out
+
     # 8b. approximate time sharding at the default tier 1: pll_scan at 32
     # rows; against the sequential tier-1 run of the first 4 shards' blocks.
     # Every shard's slicer re-aligns after its warm-up gate, so a 12-block
     # shard gives ~0.2 s of bits at a time: PI (in every group) decodes, a
     # whole PS name (4 groups of one kind) only from longer shards, here 4
     per = ts_blocks // ts_shards
+    sharded_graph_check(
+        "time_sharded_tier1", lambda x: sharded_eager(rx1, x, ts_shards),
+        lambda x: time_sharded_run(rx1, x, ts_shards), long_iq,
+        full + (pll_scan_kernel.name,))
     reset_counts()
     ap_out, ap_ms = timed(lambda: time_sharded_run(rx1, long_iq, ts_shards))
     count_path("time_sharded_tier1",
@@ -2732,6 +2945,11 @@ def main() -> None:
     joint = torch.from_numpy(np.stack([
         np.roll(pairs, -v, axis=0).reshape(jt_blocks, blk)
         for v in shifts])).to(dev)
+    sharded_graph_check(
+        "time_sharded_bank",
+        lambda x: _sharded_run(rx, x, jt_shards, 1, True, [[rx.device]],
+                               None),
+        lambda x: time_sharded_run_bank(rx, x, jt_shards), joint, full)
     reset_counts()
     jt_out, jt_ms = timed(lambda: time_sharded_run_bank(rx, joint,
                                                         jt_shards))
@@ -2801,17 +3019,43 @@ def main() -> None:
                 for st in stations)):
             fail(f"{path} disagrees with the unsharded wideband path")
 
+    def sharded_steps(path, sw, needed):
+        """Each shard's step graphed (one graph per shard, the first
+        segment's calls capturing) against its eager form: phase 5's
+        segments chained from a fresh state (a library fold product
+        inside: held to its gates where a leaf differs), then the numbers
+        of both forms."""
+        def eager_sw(st, seg):
+            i, q = u8_to_rails(seg)
+            fs_, bs_, out_ = zip(*(
+                sw._step_one(k, st[0][k], st[1][k], i, q)
+                for k in range(len(sw.devices))))
+            return (fs_, bs_), out_
+
+        def jit_sw(st, seg):
+            fs_, bs_, out_ = sw.step(st[0], st[1], *u8_to_rails(seg))
+            return (fs_, bs_), out_
+        dsegs = [torch.from_numpy(sg).to(dev) for sg in wsegs]
+        s0 = sw.init_state()
+        graph_check(path, eager_sw, jit_sw, [(d,) for d in dsegs], s0,
+                    needed, ("tiled",), library=True)
+        graph_times(path, lambda st: eager_sw(st, dsegs[0])[0],
+                    lambda st: jit_sw(st, dsegs[0])[0], s0)
+
     sw2 = ShardedWideband(ch, rx, devices=two)
-    res = run_sharded("sharded_two_stage", sw2,
-                      (chan_epilogue.name, frontend_fused.name,
-                       fir_bank.name, fir_decimate.name))
+    needed = (chan_epilogue.name, frontend_fused.name, fir_bank.name,
+              fir_decimate.name)
+    sharded_steps("sharded_two_stage", sw2, needed)
+    res = run_sharded("sharded_two_stage", sw2, needed)
     check_sharded("sharded_two_stage", wb_ref["two_stage"], *res)
     if by_path["sharded_two_stage"][chan_epilogue.name] != 2 * SEGMENTS:
         fail("chan_epilogue did not launch once per shard and segment")
     sf2 = ShardedFusedWideband(wf, rx, devices=two)
+    sharded_steps("sharded_fused", sf2, (fir_bank.name, fir_decimate.name))
     res = run_sharded("sharded_fused", sf2,
                       (fir_bank.name, fir_decimate.name))
     check_sharded("sharded_fused", wb_ref["fused"], *res)
+    n_graphs = len(rx.graphs)
     # retune station 63 (an empty slot of the second shard) onto slot 32's
     # transmitter: only the second shard's weights change, station 63 then
     # decodes slot 32's PS and the first shard's stations do not move
@@ -2827,16 +3071,29 @@ def main() -> None:
     print(f"sharded_fused retune of station {WB_STATIONS - 1} -> "
           f"{offs[32]} Hz: shards rewritten {moved}, station "
           f"{WB_STATIONS - 1} PS {ps63!r}, the first shard's 32 stations "
-          f"unchanged {first_same}")
+          f"unchanged {first_same}; the retuned segments replayed the "
+          f"shards' graphs (graphs before {n_graphs}, after "
+          f"{len(rx.graphs)})")
     if not (moved == [False, True] and first_same
-            and ps63 == stations[1]["ps_name"]):
+            and ps63 == stations[1]["ps_name"]
+            and len(rx.graphs) == n_graphs):
         fail("the sharded retune did not reach its shard and no other")
     del wb_ref, res, sw2, sf2, ch, wf, wsegs, raw
 
     # -- 9. the diagnostic entry point at full width -------------------------
     t9 = time.perf_counter()
     # 9a. the alternative RDS receiver on the 32-block +200 ppm station:
+    # the device half (the frontend and _device_chain, one graph) against
+    # its eager form (graph_check captures it), then decodes replaying it:
     # the frontend, the baseband bank and the two loops launch once each
+    alt_x = torch.from_numpy(alt_iq).to(dev)[None]
+    none = torch.zeros((), device=dev)
+    graph_check("alt_decode", lambda st, x: (st, alt_rx._device_half(x)),
+                lambda st, x: (st, alt_rx.graphs(alt_rx._device_half,
+                                                 ("decode",), x)),
+                [(alt_x,)], none,
+                (frontend_fused.name, fir_bank.name, mm_timing_kernel.name,
+                 costas_kernel.name), ("general",))
     reset_counts()
     (alt_dec, alt_diag), alt_ms = timed(lambda: alt_rx.decode(alt_iq))
     count_path("alt_rds", (frontend_fused.name, fir_bank.name,
@@ -2860,7 +3117,7 @@ def main() -> None:
           f"{alt_dec.events.groups_decoded}, {len(alt_diag.symbols)} "
           f"symbols, Costas track {f_track:.2f} Hz (true {f_true:.2f}); bits "
           f"equal to the CPU run {bits_same} ({len(alt_diag.bits)} bits, "
-          f"CPU PS {cpu_dec.events.ps_name!r}); first decode {alt_ms:.1f} "
+          f"CPU PS {cpu_dec.events.ps_name!r}); one decode {alt_ms:.1f} "
           f"ms, warm {', '.join(f'{t:.1f}' for t in alt_warm)} ms (median "
           f"{statistics.median(alt_warm):.1f} ms, "
           f"{alt_radio / (statistics.median(alt_warm) / 1e3):.1f} s of radio "
@@ -2874,8 +3131,16 @@ def main() -> None:
     alt_stats = dict(first_ms=alt_ms, warm_ms=alt_warm,
                      radio_s_per_wall_s=alt_radio / (
                          statistics.median(alt_warm) / 1e3),
-                     host_split_ms=alt_decode_split(torch, np, alt_rx, alt_iq,
-                                                    alt_diag.bits))
+                     host_split_ms={
+                         form: alt_decode_split(torch, np, alt_rx, alt_iq,
+                                                alt_diag.bits, form ==
+                                                "graphed")
+                         for form in ("eager", "graphed")})
+    graph_times("alt_decode",
+                lambda st: (alt_rx._decode(alt_iq, alt_rx._device_half),
+                            st)[1],
+                lambda st: (alt_rx.decode(alt_iq), st)[1], none)
+    del alt_x, none
     with tempfile.TemporaryDirectory() as tmp_p:
         profile_segment(torch, card, args.profile or tmp_p, "alt_decode",
                         lambda: alt_rx.decode(alt_iq),

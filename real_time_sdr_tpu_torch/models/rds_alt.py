@@ -23,6 +23,12 @@ The carrier is only frequency-locked (a 180-degree ambiguity); the
 differential code makes the bits polarity-immune. This is an offline,
 diagnostic receiver: ``decode(iq_u8)`` takes a whole capture, and only the
 final fetch crosses to the host. The streaming path remains ``Receiver``.
+
+JAX compiles ``_device_chain``; on the card the frontend and the chain are
+one captured CUDA graph per capture length (``utils.graphs``, in the
+receiver's ``graphs``), replayed once per decode between the capture's
+upload and the fetch of its results; on the CPU they run eagerly.
+``_decode(iq_u8, self._device_half)`` is the eager decode.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from real_time_sdr_tpu_torch.ops.costas import (CostasCarry, coarse_freq_bpsk,
                                                 costas_scan)
 from real_time_sdr_tpu_torch.ops.fir import PolyFIR, make_bank
 from real_time_sdr_tpu_torch.ops.symbol_timing import comb_acquire, mm_timing
+from real_time_sdr_tpu_torch.utils.graphs import GraphCache
 
 __all__ = ["AltRdsReceiver", "AltRdsDiag"]
 
@@ -94,6 +101,7 @@ class AltRdsReceiver(nn.Module):
         self.mm_gain = mm_gain
         self.costas_alpha = costas_alpha
         self.costas_beta = costas_beta
+        self.graphs = GraphCache()
         self.to(self.device)
 
     # -- device half -------------------------------------------------------
@@ -139,6 +147,13 @@ class AltRdsReceiver(nn.Module):
                            0)
         return bb, syms, derot, freq_log, bits, n_valid
 
+    @torch.no_grad()
+    def _device_half(self, iq: torch.Tensor):
+        """iq (1, n) uint8 on the device -> ``_device_chain``'s outputs: the
+        frontend from its initial state, then the chain."""
+        demod, _ = self.frontend(iq, self.frontend.init_state(1))
+        return self._device_chain(demod[0])
+
     # -- host half ---------------------------------------------------------
 
     @torch.no_grad()
@@ -146,6 +161,12 @@ class AltRdsReceiver(nn.Module):
         """iq_u8: raw interleaved uint8 capture (whole blocks are used).
 
         Returns (SyncByOffsetDecoder with events populated, AltRdsDiag)."""
+        return self._decode(iq_u8, lambda iq: self.graphs(
+            self._device_half, ("decode",), iq))
+
+    def _decode(self, iq_u8: np.ndarray, device_half):
+        """``decode`` with ``device_half`` (iq (1, n) -> the chain's
+        outputs) as its device half."""
         blk = 2 * self.cfg.block_size_iq
         n_blocks = len(iq_u8) // blk
         if n_blocks == 0:
@@ -153,9 +174,7 @@ class AltRdsReceiver(nn.Module):
                              f"{blk}-byte block")
         iq = torch.from_numpy(np.ascontiguousarray(
             iq_u8[:n_blocks * blk], dtype=np.uint8)).to(self.device)
-        demod, _ = self.frontend(iq[None], self.frontend.init_state(1))
-        bb, syms, derot, freq_log, bits, n_valid = self._device_chain(
-            demod[0])
+        bb, syms, derot, freq_log, bits, n_valid = device_half(iq[None])
         nv = int(n_valid)
         bits_np = bits.cpu().numpy()[:max(0, nv - 1)]
         dec = SyncByOffsetDecoder()

@@ -81,7 +81,8 @@ class Receiver(nn.Module):
         self.rds = bool(rds)
         self.pll_tier = pll_tier
         self.device = resolve_device(device)
-        self._replicas: dict[torch.device, Receiver] = {}
+        # the copies replica() and without_bits() made, kept
+        self._replicas: dict = {}
         # the graphs of the jit_* entries and of ChannelBank's; a replica
         # (a deep copy) starts its own
         self.graphs = GraphCache()
@@ -103,14 +104,33 @@ class Receiver(nn.Module):
         if dev == self.device:
             return self
         if dev not in self._replicas:
-            cache, self._replicas = self._replicas, {}   # copied with self
-            try:
-                twin = copy.deepcopy(self).to(dev)
-            finally:
-                self._replicas = cache
+            twin = self._copy().to(dev)
             twin.device = dev
-            cache[dev] = twin
+            self._replicas[dev] = twin
         return self._replicas[dev]
+
+    def without_bits(self) -> "Receiver":
+        """This receiver with its RDS slicer off (``rds_path.emit_bits =
+        False``: ``rds_clean`` comes out, the bits are zeros), a copy made
+        once and kept; itself when it has no RDS path. The DSP pass of exact
+        time sharding runs on it, as the JAX package's on its ``dsp_rx``,
+        so that this receiver and its graphs never see the flag."""
+        if self.rds_path is None:
+            return self
+        if "without_bits" not in self._replicas:
+            twin = self._copy()
+            twin.rds_path.emit_bits = False
+            self._replicas["without_bits"] = twin
+        return self._replicas["without_bits"]
+
+    def _copy(self) -> "Receiver":
+        """A deep copy of the modules and buffers on this receiver's
+        device, with no copies of its own and an empty graph cache."""
+        cache, self._replicas = self._replicas, {}   # not copied with self
+        try:
+            return copy.deepcopy(self)
+        finally:
+            self._replicas = cache
 
     def init_state(self, batch: int) -> ReceiverState:
         """Fresh state for ``batch`` channels."""

@@ -28,10 +28,13 @@ one tree per device (``utils.state`` walks tuples, so ``save_state`` /
 is the bare tree, as before. A device may be listed twice (two replicas on
 one card).
 
-The ``*_jit`` entries and ``run_segment_grouped`` are the JAX package's
-compiled serving entries: on the card each is one captured CUDA graph per
-input shape (kept in the receiver's ``graphs``, one cache per replica),
-replayed once per call; on the CPU they run their eager functions.
+The bank's own entries (``step``, ``run``, ``run_segment``,
+``run_segment_demod``), the ``*_jit`` entries and ``run_segment_grouped``
+are compiled in the JAX package: on the card each is one captured CUDA
+graph per input shape (kept in the receiver's ``graphs``, one cache per
+replica), replayed once per call and device, whose outputs are fresh
+tensors; on the CPU they run their eager functions. ``_step``, ``_run``
+and ``_run_segment_demod`` are the eager forms.
 """
 
 from __future__ import annotations
@@ -131,15 +134,28 @@ class ChannelBank:
 
     def step(self, state, blocks):
         """blocks: (C, 2*block_size_iq) uint8, one block per channel (with
-        several devices: ``place``'s tuple, or the whole array)."""
+        several devices: ``place``'s tuple, or the whole array). Each
+        replica's ``jit_step``."""
         self._rows(blocks, "blocks")
-        return self._each(Receiver.step, state, blocks)
+        return self._each(Receiver.jit_step, state, blocks)
+
+    def _step(self, state, x):
+        """The eager form of ``step`` and ``run_segment``."""
+        self._rows(x, "rows")
+        return self._each(Receiver.step, state, x)
 
     def run(self, state, blocks):
         """blocks: (B, C, 2*block_size_iq) uint8: one ``step`` per block, in
-        order. Returns (final_state, ReceiverOutput) with every output
-        stacked on a leading block axis, e.g. left (B, C, audio_block),
-        rds_nbits (B, C)."""
+        order, the whole loop one graph per device. Returns (final_state,
+        ReceiverOutput) with every output stacked on a leading block axis,
+        e.g. left (B, C, audio_block), rds_nbits (B, C)."""
+        return self._each(
+            lambda rx, st, x: rx.graphs(functools.partial(self._run_one, rx),
+                                        ("bank_run",), st, x),
+            state, blocks)
+
+    def _run(self, state, blocks):
+        """The eager form of ``run``."""
         return self._each(self._run_one, state, blocks)
 
     @staticmethod
@@ -166,9 +182,9 @@ class ChannelBank:
 
     def run_segment(self, state, segments):
         """segments: (C, B*2*block_size_iq) uint8, one pass per segment (see
-        ``Receiver.run_segment``)."""
+        ``Receiver.run_segment``): each replica's ``jit_step``."""
         self._rows(segments, "segments")
-        return self._each(Receiver.run_segment, state, segments)
+        return self._each(Receiver.jit_step, state, segments)
 
     def run_segment_grouped(self, state, segments, group: int = 32):
         """``run_segment`` as sequential sub-batches of ``group`` channels
@@ -192,7 +208,16 @@ class ChannelBank:
         return self._each(call, state, segments)
 
     def run_segment_demod(self, state, demod):
-        """demod: (C, B*if_block) float32 from an external frontend."""
+        """demod: (C, B*if_block) float32 from an external frontend, one
+        graph per device."""
+        self._rows(demod, "demod")
+        return self._each(
+            lambda rx, st, d: rx.graphs(rx.run_segment_demod,
+                                        ("run_segment_demod",), st, d),
+            state, demod)
+
+    def _run_segment_demod(self, state, demod):
+        """The eager form of ``run_segment_demod``."""
         self._rows(demod, "demod")
         return self._each(Receiver.run_segment_demod, state, demod)
 
@@ -211,7 +236,7 @@ class ChannelBank:
         ``(state, out, cstate)``; ``run_channelized_jit`` is its graph."""
         self._one_device("run_channelized")
         u8, cstate = ch.call_u8(i_wide, q_wide, cstate)
-        state, out = self.run_segment(state, u8)
+        state, out = self._step(state, u8)
         return state, out, cstate
 
     def run_channelized_fused(self, state, wf: FusedWidebandFrontend,
@@ -222,7 +247,7 @@ class ChannelBank:
         in stream order; ``run_channelized_fused_jit`` is its graph."""
         self._one_device("run_channelized_fused")
         demod, wstate = wf(i_wide, q_wide, wstate)
-        state, out = self.run_segment_demod(state, demod)
+        state, out = self._run_segment_demod(state, demod)
         return state, out, wstate
 
     def run_wideband(self, state, fe, i_wide, q_wide, festate):

@@ -42,11 +42,22 @@ last blocks to the next rank.
     blocks = torch.from_numpy(np.fromfile("capture.raw", np.uint8)).reshape(
         -1, 2 * rx.cfg.block_size_iq)[:384]
     out = time_sharded_run(rx, blocks, shards=32)      # (384, ...) leaves
+
+JAX compiles the whole run once per mesh and geometry; on the card the port
+replays captured CUDA graphs (``utils.graphs``, in the caches of the
+receiver's replicas), one per geometry: on one device and in one process a
+single graph of the whole run (halo, the DSP rows, the join, the sign chain
+and the global decode); over several devices or processes one graph per
+device for its rows and one on the first device for the sign chain and the
+decode, with the copies between devices, the halo's send and receive and
+the gathers between the replays. The DSP pass of exact mode runs on each
+replica's ``without_bits()`` copy (JAX's ``dsp_rx``). On the CPU the run is
+eager.
 """
 
 from __future__ import annotations
 
-import contextlib
+import functools
 import math
 
 import torch
@@ -102,7 +113,7 @@ def time_sharded_run(rx: Receiver, blocks: torch.Tensor, shards: int,
     if blocks.ndim != 2:
         raise ValueError(f"blocks must be (B, n), got {tuple(blocks.shape)}")
     out = _sharded_run(rx, blocks[None], shards, overlap, exact,
-                       [resolve_devices(devices)], group)
+                       [resolve_devices(devices)], group, graphed=True)
     return ReceiverOutput(*(None if leaf is None else leaf[0]
                             for leaf in out))
 
@@ -135,22 +146,8 @@ def time_sharded_run_bank(rx: Receiver, blocks: torch.Tensor, shards: int,
             raise ValueError("the device grid's rows differ in length")
     else:
         grid = [[d] for d in resolve_devices(devices)]
-    return _sharded_run(rx, blocks, shards, overlap, True, grid, group)
-
-
-@contextlib.contextmanager
-def _emit_bits(receivers, emit: bool):
-    """Within the block the receivers' RDS paths emit bits only if
-    ``emit`` (and they did before); restored on the way out."""
-    paths = [r.rds_path for r in receivers if r.rds_path is not None]
-    before = [p.emit_bits for p in paths]
-    try:
-        for p, was in zip(paths, before):
-            p.emit_bits = was and emit
-        yield
-    finally:
-        for p, was in zip(paths, before):
-            p.emit_bits = was
+    return _sharded_run(rx, blocks, shards, overlap, True, grid, group,
+                        graphed=True)
 
 
 def _level(rx: Receiver, state) -> torch.Tensor:
@@ -162,20 +159,20 @@ def _level(rx: Receiver, state) -> torch.Tensor:
     return torch.remainder(p.trig_angle(c.trig) + c.resid, 2.0 * _TWO_PI)
 
 
-def _run_rows(rx: Receiver, local: torch.Tensor, halo: torch.Tensor,
-              head: torch.Tensor, want_levels: bool):
+def _run_rows(rx: Receiver, local: torch.Tensor, halo: torch.Tensor, *,
+              t_per: int, head: bool, want_levels: bool):
     """One device's rows: warm up on the halo from the initial state, keep
-    the initial state on the rows that are the true head of a stream, run
-    the local blocks. local (R, Bl, n), halo (R, overlap, n), head (R,)
-    bool. Returns (outs with (R, Bl, ...) leaves, levels (R, 2) or None):
-    the phase level after the warm-up and at the end."""
+    the initial state on the rows that are the true head of a stream (with
+    ``head``, every ``t_per``-th row from the first), run the local blocks.
+    local (R, Bl, n), halo (R, overlap, n). Returns (outs with (R, Bl, ...)
+    leaves, levels (R, 2) or None): the phase level after the warm-up and
+    at the end."""
     init = rx.init_state(local.shape[0])
-    warm, _ = rx.run_blocks(init, halo)
-
-    def pick(a, b):
-        return torch.where(head.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
-
-    state0 = map_state(init, pick, warm)
+    state0, _ = rx.run_blocks(init, halo)
+    if head:
+        first = torch.arange(local.shape[0], device=local.device) % t_per == 0
+        state0 = map_state(init, lambda a, b: torch.where(
+            first.reshape((-1,) + (1,) * (a.ndim - 1)), a, b), state0)
     final, outs = rx.run_blocks(state0, local)
     levels = (torch.stack([_level(rx, state0), _level(rx, final)], dim=-1)
               if want_levels else None)
@@ -205,6 +202,32 @@ def _decode(rx: Receiver, clean: torch.Tensor):
             torch.stack([o[1] for o in out], dim=1))
 
 
+def _sign_and_decode(rx: Receiver, out: ReceiverOutput, levels: torch.Tensor,
+                     clean: torch.Tensor, *, bl: int, first: int,
+                     n_blocks: int):
+    """The per-shard RDS carrier signs chained across the boundaries, then
+    one decode of the whole signed stream. levels (C, t, 2) and clean
+    (C, B, rds_block) cover every shard of every process; this process's
+    blocks are the ``n_blocks`` from ``first``. Returns ``out`` with its bits, counts and signed RRC
+    stream."""
+    # Shard k+1's level after its warm-up and shard k's level at its end
+    # describe the SAME boundary sample; both are wrapped mod 4*pi and agree
+    # mod 2*pi, so their difference is (nearly) a whole multiple of 2*pi
+    # whose parity is k's relative carrier sign.
+    starts = levels[:, 1:, 0]
+    ends = levels[:, :-1, 1]
+    m = torch.round((starts - ends) / _TWO_PI).to(torch.int32)
+    parity = torch.cat([torch.zeros_like(m[:, :1]),
+                        torch.cumsum(m, dim=1) % 2], dim=1)
+    sign = torch.where(parity == 0, 1.0, -1.0).to(torch.float32)
+    clean = clean * sign[..., None].expand(-1, -1, bl).reshape(
+        sign.shape[0], -1)[..., None]
+    bits, n_bits = _decode(rx, clean)
+    mine = slice(first, first + n_blocks)
+    return out._replace(rds_bits=bits[:, mine], rds_nbits=n_bits[:, mine],
+                        rds_clean=clean[:, mine])
+
+
 def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x.contiguous(), group=group)
@@ -212,9 +235,12 @@ def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 
 
 def _sharded_run(rx: Receiver, blocks: torch.Tensor, shards: int,
-                 overlap: int, exact: bool | None, grid: list, group):
+                 overlap: int, exact: bool | None, grid: list, group,
+                 graphed: bool = False):
     """blocks (C, B, n) -> ReceiverOutput with (C, B, ...) leaves on
-    grid[0][0]. grid: channel groups x time groups of devices."""
+    grid[0][0]. grid: channel groups x time groups of devices. ``graphed``
+    replays the graphs of the module docstring (on the card; on the CPU the
+    graph cache runs the functions eagerly); without it the run is eager."""
     if exact is None:
         exact = _all_feedforward(rx)
     elif exact and not _all_feedforward(rx):
@@ -240,83 +266,92 @@ def _sharded_run(rx: Receiver, blocks: torch.Tensor, shards: int,
     t_per = split_rows(t, grid[0], "time shards")
     dev0 = grid[0][0]
     reps = {dev: rx.replica(dev) for row in grid for dev in row}
+    # the graphs take the capture on the first device, as JAX a device array
+    blocks = blocks.to(dev0)
     if shards == 1:
+        r0 = reps[dev0]
+        run = r0.jit_run_blocks if graphed else r0.run_blocks
         with on_device(dev0):
-            _, outs = reps[dev0].run_blocks(reps[dev0].init_state(n_ch),
-                                            blocks.to(dev0))
-        return outs
-
-    xs = blocks.reshape(n_ch, t, bl, blocks.shape[-1])
-    tails = xs[:, :, bl - overlap:]
-    # shard k's halo is shard k-1's tail; the ring closes on shard 0, whose
-    # warm-up is discarded by the head select
-    halo = torch.roll(tails, 1, dims=1)
-    if world > 1:
-        send = tails[:, -1].to(dev0).contiguous()
-        recv = torch.empty_like(send)
-        ranks = dist.get_process_group_ranks(group)
-        reqs = [dist.isend(send, ranks[(rank + 1) % world], group=group),
-                dist.irecv(recv, ranks[(rank - 1) % world], group=group)]
-        for r in reqs:
-            r.wait()
-        halo[:, 0] = recv.to(halo.device)
+            return run(r0.init_state(n_ch), blocks)[1]
 
     signed = exact and rx.rds_path is not None
-    parts = []
     # in exact mode the DSP pass skips the slicer: one decode follows
-    with _emit_bits(reps.values(), not signed):
+    dsp = {dev: r.without_bits() if signed else r
+           for dev, r in reps.items()}
+    staged = graphed and (group is not None or len(reps) > 1)
+    geometry = (shards, overlap, exact, len(grid), len(grid[0]), rank,
+                world)
+
+    def stage(dev, name, fn, *args, **static):
+        """``fn(*args, **static)``; run stage by stage, through the graph
+        of ``dev``'s replica keyed by its static arguments."""
+        if not staged:
+            return fn(*args, **static)
+        return reps[dev].graphs(functools.partial(fn, **static),
+                                (name, *geometry, *sorted(static.items())),
+                                *args)
+
+    def run(blocks):
+        xs = blocks.reshape(n_ch, t, bl, blocks.shape[-1])
+        tails = xs[:, :, bl - overlap:]
+        # shard k's halo is shard k-1's tail; the ring closes on shard 0,
+        # whose warm-up is discarded by the head select
+        halo = torch.roll(tails, 1, dims=1)
+        if world > 1:
+            send = tails[:, -1].contiguous()
+            recv = torch.empty_like(send)
+            ranks = dist.get_process_group_ranks(group)
+            reqs = [dist.isend(send, ranks[(rank + 1) % world], group=group),
+                    dist.irecv(recv, ranks[(rank - 1) % world], group=group)]
+            for r in reqs:
+                r.wait()
+            halo[:, 0] = recv
+        parts = []
         for i, row in enumerate(grid):
             for j, dev in enumerate(row):
                 ci = slice(i * c_per, (i + 1) * c_per)
                 tj = slice(j * t_per, (j + 1) * t_per)
-                head = torch.zeros((c_per, t_per), dtype=torch.bool)
-                head[:, 0] = rank == 0 and j == 0
                 rows = (c_per * t_per,)
                 with on_device(dev):
-                    parts.append(_run_rows(
-                        reps[dev],
+                    parts.append(stage(
+                        dev, "time_shard_rows",
+                        functools.partial(_run_rows, dsp[dev]),
                         xs[ci, tj].reshape(rows + xs.shape[2:]).to(
                             dev, non_blocking=True),
                         halo[ci, tj].reshape(rows + halo.shape[2:]).to(
                             dev, non_blocking=True),
-                        head.reshape(rows).to(dev), signed))
+                        t_per=t_per, head=rank == 0 and j == 0,
+                        want_levels=signed))
 
-    def join(leaves, tail_of):
-        """Per-device (c_per*t_per, ...) leaves -> (C, t*..., ...) on the
-        first device: time groups join on axis 1, channel groups on 0."""
-        it = iter(leaves)
-        return torch.cat([torch.cat([
-            tail_of(next(it)).to(dev0) for _ in row], dim=1)
-            for row in grid], dim=0)
+        def join(leaves, tail_of):
+            """Per-device (c_per*t_per, ...) leaves -> (C, t*..., ...) on
+            the first device: time groups join on axis 1, channel groups
+            on 0."""
+            it = iter(leaves)
+            return torch.cat([torch.cat([
+                tail_of(next(it)).to(dev0) for _ in row], dim=1)
+                for row in grid], dim=0)
 
-    with on_device(dev0):
-        out = ReceiverOutput(*(
-            None if leaves[0] is None else join(
-                leaves, lambda x: x.reshape((c_per, t_per * bl)
-                                            + x.shape[2:]))
-            for leaves in zip(*(p[0] for p in parts))))
-        if not signed:
-            return out
-        levels = join([p[1] for p in parts],
-                      lambda x: x.reshape(c_per, t_per, 2))     # (C, t, 2)
-        clean = out.rds_clean
-        if world > 1:
-            levels = _all_gather(levels, group, dim=1)
-            clean = _all_gather(clean, group, dim=1)
-        # -- per-shard RDS carrier sign, chained across the boundaries -----
-        # Shard k+1's level after its warm-up and shard k's level at its
-        # end describe the SAME boundary sample; both are wrapped mod 4*pi
-        # and agree mod 2*pi, so their difference is (nearly) a whole
-        # multiple of 2*pi whose parity is k's relative carrier sign.
-        starts = levels[:, 1:, 0]
-        ends = levels[:, :-1, 1]
-        m = torch.round((starts - ends) / _TWO_PI).to(torch.int32)
-        parity = torch.cat([torch.zeros_like(m[:, :1]),
-                            torch.cumsum(m, dim=1) % 2], dim=1)
-        sign = torch.where(parity == 0, 1.0, -1.0).to(torch.float32)
-        clean = clean * torch.repeat_interleave(sign, bl, dim=1)[..., None]
-        # -- one sequential decode over the gathered exact RRC stream ------
-        bits, n_bits = _decode(reps[dev0], clean)
-        mine = slice(rank * n_blocks, (rank + 1) * n_blocks)
-        return out._replace(rds_bits=bits[:, mine], rds_nbits=n_bits[:, mine],
-                            rds_clean=clean[:, mine])
+        with on_device(dev0):
+            out = ReceiverOutput(*(
+                None if leaves[0] is None else join(
+                    leaves, lambda x: x.reshape((c_per, t_per * bl)
+                                                + x.shape[2:]))
+                for leaves in zip(*(p[0] for p in parts))))
+            if not signed:
+                return out
+            levels = join([p[1] for p in parts],
+                          lambda x: x.reshape(c_per, t_per, 2))  # (C, t, 2)
+            clean = out.rds_clean
+            if world > 1:
+                levels = _all_gather(levels, group, dim=1)
+                clean = _all_gather(clean, group, dim=1)
+            return stage(dev0, "time_shard_decode",
+                         functools.partial(_sign_and_decode, reps[dev0]),
+                         out, levels, clean, bl=bl, first=rank * n_blocks,
+                         n_blocks=n_blocks)
+
+    if graphed and not staged:
+        return reps[dev0].graphs(run, ("time_sharded_run", *geometry),
+                                 blocks)
+    return run(blocks)

@@ -27,9 +27,19 @@ Each two-stage shard ends in its own ``chan_epilogue`` launch
 (``Channelizer.call_u8``); the fused shards run
 ``FusedWidebandFrontend.core`` on their own columns, the same code as the
 unsharded frontend.
+
+JAX compiles the sharded step; on the card each shard's step (its frontend
+and its bank) is one captured CUDA graph per input shape, in its replica's
+``graphs`` keyed by the shard's frontend (as ``ChannelBank.run_wideband_jit``
+keys its graph), replayed once per shard and call; the rails' upload stays
+outside. The graph reads the shard's weight buffers where they are, so a
+``retune`` takes effect at the next replay. On the CPU the step is eager;
+``_step_one`` is the eager form of one shard's step.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -78,7 +88,10 @@ class _ShardedFrontend:
             with on_device(d):
                 i_d = torch.as_tensor(i_wide).to(d, non_blocking=True)
                 q_d = torch.as_tensor(q_wide).to(d, non_blocking=True)
-                res.append(self._step_one(k, fstate[k], bstate[k], i_d, q_d))
+                res.append(self.replicas[k].graphs(
+                    functools.partial(self._step_one, k),
+                    ("sharded_wideband", id(self.shards[k])),
+                    fstate[k], bstate[k], i_d, q_d))
         return tuple(zip(*res))
 
     def _step_one(self, k: int, fstate, bstate, i_wide, q_wide):

@@ -6,7 +6,10 @@ Port of ``real_time_sdr_tpu/utils/benchkit.py``:
   every output leaf to ONE scalar tensor on the receiver's device, so a
   measurement reads every output (none is dropped unread) and moves 4
   bytes back when it syncs. Channels are the rows of one batch, so the
-  step is ``run_segment`` itself (no vmap); nothing in it syncs.
+  step is ``run_segment`` itself (no vmap); nothing in it syncs. JAX
+  compiles the step; on the card it is one captured CUDA graph per input
+  shape in the receiver's ``graphs``, eager on the CPU (``_digest_fn`` and
+  ``_digest_staged_fn`` are the eager forms);
 - decorrelated per-channel inputs: cyclic time shifts of one base segment,
   built on the device from one upload, or on the host for the staged path;
 - host-staged cells: ``[tail | segment]`` operands written into pinned
@@ -18,6 +21,8 @@ nothing here needs it.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -33,13 +38,23 @@ def _digest(out) -> torch.Tensor:
     return sum(o.to(torch.float32).sum() for o in out if o is not None)
 
 
+def _digest_fn(rx, state, seg):
+    """The eager form of ``digest_step(rx)``."""
+    s2, out = rx.run_segment(state, seg)
+    return s2, _digest(out)
+
+
+def _digest_staged_fn(rx, n2: int, state, xp):
+    """The eager form of ``digest_step_staged(rx, n2)``."""
+    s2, out = rx.run_segment_staged(state, xp, n2)
+    return s2, _digest(out)
+
+
 def digest_step(rx):
     """``fn(state, seg) -> (state, scalar tensor)`` over
     ``rx.run_segment``: seg (C, n2) uint8 on ``rx``'s device."""
-    def digest_fn(state, seg):
-        s2, out = rx.run_segment(state, seg)
-        return s2, _digest(out)
-    return digest_fn
+    step = functools.partial(_digest_fn, rx)
+    return lambda state, seg: rx.graphs(step, ("digest",), state, seg)
 
 
 def digest_step_staged(rx, n2: int):
@@ -47,10 +62,9 @@ def digest_step_staged(rx, n2: int):
     over ``rx.run_segment_staged`` for an n2-byte segment, xp the
     host-staged operand (``rx.frontend.stage_segment``) on the device. Its
     digest equals ``digest_step``'s on the same bytes, bit for bit."""
-    def digest_fn(state, xp):
-        s2, out = rx.run_segment_staged(state, xp, n2)
-        return s2, _digest(out)
-    return digest_fn
+    step = functools.partial(_digest_staged_fn, rx, n2)
+    return lambda state, xp: rx.graphs(step, ("digest_staged", n2), state,
+                                       xp)
 
 
 def _shifts(n_ch: int, n_len: int) -> list[int]:

@@ -203,6 +203,9 @@ class _Entry:
                  device: torch.device, graph_cls):
         self.name = name
         self.device = device
+        # kept, and with it what the graph reads in place (a frontend's
+        # weight buffers): nothing it captured is freed while it lives
+        self.fn = fn
         self.inp = _Packed([(t.shape, t.dtype) for t in leaves], device)
         self.inp.copy_in(leaves)     # the warm-up reads real inputs
         static_args = _unflatten(spec, iter(self.inp.views))

@@ -1213,6 +1213,90 @@ def test_graphed_bank_entries_equal_eager(card):
             assert _trees_equal((se, oe, fse), (sg, og, fsg)), type(fe)
 
 
+
+def test_graphed_parallel_entries_equal_eager(card):
+    """The entries graphed last, each twice against its eager form bit for
+    bit, with the kernels' launch counts rising as eagerly: the bank's
+    own step / run_segment / run / run_segment_demod (4 channels), the
+    digest steps, time sharding (exact with both timings, approximate at
+    tier 1, joint), each shard's wideband step over two replicas of the
+    card, and the alternative decode's device half."""
+    from real_time_sdr_tpu_torch.models.rds_alt import AltRdsReceiver
+    from real_time_sdr_tpu_torch.models.wideband_frontend import \
+        FusedWidebandFrontend
+    from real_time_sdr_tpu_torch.parallel import time_shard as tts
+    from real_time_sdr_tpu_torch.parallel.wideband import (
+        ShardedFusedWideband, ShardedWideband)
+    from real_time_sdr_tpu_torch.utils import benchkit, graphs
+    rx, _ = card
+    blk = 2 * rx.cfg.block_size_iq
+    x = _graph_rows(rx, 4, 8, seed=7)
+    bank, s0 = ChannelBank(rx, 4), rx.init_state(4)
+    demod, _ = rx.frontend(x[:, :2 * blk], s0.frontend)
+    xp = torch.cat([s0.frontend.iq_tail, x[:, :2 * blk]], 1).contiguous()
+    sharded = {}
+    for tier, timing in ((3, "comb"), (3, "tracked"), (1, "comb")):
+        r = Receiver(0, stereo=True, rds=True, pll_tier=tier,
+                     rds_timing=timing, device="cuda")
+        sharded[tier, timing] = (
+            lambda r=r: tts._sharded_run(r, x[:1].reshape(1, 8, blk), 4, 1,
+                                         None, [[r.device]], None),
+            lambda r=r: tts._sharded_run(r, x[:1].reshape(1, 8, blk), 4, 1,
+                                         None, [[r.device]], None,
+                                         graphed=True))
+    cases = {
+        "step": (lambda: bank._step(s0, x[:, :blk].contiguous()),
+                 lambda: bank.step(s0, x[:, :blk].contiguous())),
+        "run_segment": (lambda: bank._step(s0, x[:, :2 * blk]),
+                        lambda: bank.run_segment(s0, x[:, :2 * blk])),
+        "run": (lambda: bank._run(s0, x.reshape(4, 8, blk)[:, :3]
+                                  .transpose(0, 1).contiguous()),
+                lambda: bank.run(s0, x.reshape(4, 8, blk)[:, :3]
+                                 .transpose(0, 1).contiguous())),
+        "run_segment_demod": (lambda: bank._run_segment_demod(s0, demod),
+                              lambda: bank.run_segment_demod(s0, demod)),
+        "digest": (lambda: benchkit._digest_fn(rx, s0, x[:, :2 * blk]),
+                   lambda: benchkit.digest_step(rx)(s0, x[:, :2 * blk])),
+        "digest_staged": (
+            lambda: benchkit._digest_staged_fn(rx, 2 * blk, s0, xp),
+            lambda: benchkit.digest_step_staged(rx, 2 * blk)(s0, xp)),
+        "time_sharded_bank": (
+            lambda: tts._sharded_run(rx, x[:2].reshape(2, 8, blk), 4, 1,
+                                     True, [[rx.device]], None),
+            lambda: tts.time_sharded_run_bank(rx, x[:2].reshape(2, 8, blk),
+                                              4)),
+        **{f"time_sharded_tier{t}_{m}": f for (t, m), f in sharded.items()},
+    }
+    wide_fs = 4 * rx.cfg.rf_fs
+    offs = [-450_000, -150_000, 150_000, 450_000]
+    iw, qw, _ = synth.wideband_iq(rx.cfg, wide_fs, [
+        dict(offset_hz=o, ps_name=f"CRD-{k}   ") for k, o in enumerate(offs)],
+        1)
+    iw, qw = torch.from_numpy(iw).cuda(), torch.from_numpy(qw).cuda()
+    for cls, fe in ((ShardedWideband, Channelizer(rx.cfg, wide_fs, offs)),
+                    (ShardedFusedWideband,
+                     FusedWidebandFrontend(rx.cfg, wide_fs, offs))):
+        sw = cls(fe, rx, devices=["cuda", "cuda"])
+        fs, bs = sw.init_state()
+        cases[cls.__name__] = (
+            lambda sw=sw, fs=fs, bs=bs: tuple(zip(*(
+                sw._step_one(k, fs[k], bs[k], iw, qw) for k in range(2)))),
+            lambda sw=sw, fs=fs, bs=bs: sw.step(fs, bs, iw, qw))
+    alt = AltRdsReceiver(0, device="cuda")
+    aiq = torch.from_numpy(synth.station_iq(rx.cfg, 8)[0]).cuda()[None]
+    cases["alt_decode"] = (
+        lambda: alt._device_half(aiq),
+        lambda: alt.graphs(alt._device_half, ("decode",), aiq))
+    for name, (eager, graphed) in cases.items():
+        c0 = graphs.launch_counts()
+        ref = eager()
+        c1 = graphs.launch_counts()
+        for _ in range(2):
+            assert _trees_equal(graphed(), ref), name
+        c2 = graphs.launch_counts()
+        assert {k: 2 * (c1[k] - c0[k]) for k in c0} == {
+            k: c2[k] - c1[k] for k in c0}, name
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "bf16x2"])
 def test_retune_between_replays_takes_effect(card, dtype):
     """A retune of the fused frontend between two replays rewrites the

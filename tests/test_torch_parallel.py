@@ -742,6 +742,16 @@ _WORKER = _WORKER_HEAD + textwrap.dedent("""
     assert torch.equal(out.rds_bits, seq.rds_bits[0, mine])
     assert torch.equal(out.rds_nbits, seq.rds_nbits[0, mine])
     assert int(seq.rds_nbits.sum()) > 0
+    # graphed across processes: one graph of the rows and one of the sign
+    # chain and decode, the halo's send and receive and the gathers
+    # between them (the card's bookkeeping, HostGraph)
+    from real_time_sdr_tpu_torch.utils.graphs import GraphCache, HostGraph
+    rx.graphs = GraphCache(HostGraph)
+    again = T.time_sharded_run(rx, blocks[mine], shards=4, overlap=1,
+                               devices=["cpu"], group=dist.group.WORLD)
+    assert len(rx.graphs) == 2
+    assert all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(out, again))
     dist.barrier()
     dist.destroy_process_group()
     print(f"WORKER_OK {rank}", flush=True)
@@ -751,7 +761,7 @@ _WORKER = _WORKER_HEAD + textwrap.dedent("""
 def test_two_process_bank_and_time_sharding():
     """gloo, two ranks: ``initialize``, ``host_channel_slice``, a bank step
     on each rank's rows, and exact time sharding with the halo crossing the
-    process boundary."""
+    process boundary, eager and stage by stage through the graph cache."""
     _run_workers(_WORKER)
 
 

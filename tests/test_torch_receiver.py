@@ -277,7 +277,9 @@ def test_port_runs_without_jax():
     time-sharded run, one tier-1 block, one wideband segment through both
     wideband frontends, the channel bank and the sharded wideband classes,
     the CLI on one block and the wideband CLI on one block of two stations
-    with a checkpoint, loads no jax, no module of the JAX package
+    with a checkpoint, and the graphed entries through the graph cache's
+    bookkeeping (``HostGraph``: a bank segment, a time-sharded run, a
+    sharded wideband step and an alternative decode), loads no jax, no module of the JAX package
     ``real_time_sdr_tpu`` and no ``golden`` (a subprocess: this test
     process already imported all three)."""
     code = textwrap.dedent("""
@@ -370,6 +372,28 @@ def test_port_runs_without_jax():
             assert os.path.exists(os.path.join(d, "ck.npz"))
         _, diag = AltRdsReceiver(0, device="cpu").decode(iq)
         assert diag.baseband.shape[0] > 0
+        from real_time_sdr_tpu_torch.utils.graphs import (GraphCache,
+                                                          HostGraph)
+        grx = Receiver(0, stereo=True, rds=True, pll_tier=3, device="cpu")
+        grx.graphs = GraphCache(HostGraph)
+        seg = torch.from_numpy(iq)[None]
+        _, gout = ChannelBank(grx, 1).run_segment(grx.init_state(1), seg)
+        assert torch.equal(gout.left,
+                           rx.run_segment(rx.init_state(1), seg)[1].left)
+        gsh = time_shard.time_sharded_run(
+            grx, torch.from_numpy(iq).reshape(2, -1), 2, devices=["cpu"])
+        assert torch.equal(gsh.left, sharded.left)
+        gsw = wideband.ShardedFusedWideband(
+            make_wideband_frontend(rx.cfg, wide_fs, offs, device="cpu"), grx,
+            devices=["cpu"])
+        _, _, gwo = gsw.step(*gsw.init_state(), iw, qw)
+        assert gwo[0].left.shape == (2, rx.cfg.audio_block)
+        assert len(grx.graphs) == 3
+        galt = AltRdsReceiver(0, device="cpu")
+        galt.graphs = GraphCache(HostGraph)
+        _, gdiag = galt.decode(iq)
+        assert len(galt.graphs) == 1
+        assert (gdiag.bits == diag.bits).all()
         _, psd = spectrum.estimate_psd(torch.from_numpy(iq[:4096]).float(),
                                        2.4e6)
         assert psd.shape == (256,)
