@@ -43,6 +43,18 @@ non-zero on failure:
    step at the max SM clock and share of the chain floor; then
    ``costas_scan``'s sine and cosine against ``sincosf`` over every f32 in
    [0, 2*pi] (the largest ulp difference printed).
+   The FIR bank's general body alone at every case of
+   ``utils/fir_digest.py``: each site of the serving path that takes it
+   at its path's shape (modes 0-3 RDS baseband at 384 rows, modes 2-3
+   audio at 64 rails, the alternative decode's 2 rows, the wideband
+   path's 768, one CLI row, a time-sharded step's 32, and 2 and 64 rows)
+   and the FIR property test's random geometries at 1, 2 and 33 rows, one
+   line each (kernel and plain ms, bound from ``cost()``, useful TFLOP/s,
+   the tile the shape picked, the SHA-256 of its output against the
+   digest the body it replaced gave on the card, ``fir_bank_digests.json``),
+   then the path sites' times beside that body's recorded ones and the
+   cases where this run was slower; a digest not equal, < 110 dB, or the
+   path's sites not running both tiles (lines and direct) fails.
    Beside each kernel's time stand its bound (the larger of its bytes,
    each input read and each output written once, over 3.35 TB/s and its
    f32 operations over 67 TFLOP/s, the H100 SXM data-sheet peaks of
@@ -774,7 +786,7 @@ def main() -> None:
             _sharded_run, time_sharded_run, time_sharded_run_bank)
         from real_time_sdr_tpu_torch.parallel.wideband import (
             ShardedFusedWideband, ShardedWideband)
-        from real_time_sdr_tpu_torch.utils import benchkit, synth
+        from real_time_sdr_tpu_torch.utils import benchkit, fir_digest, synth
         from real_time_sdr_tpu_torch.utils.audio import stereo_pcm
         from real_time_sdr_tpu_torch.utils.logging import (
             F32_LATENCY_CYCLES, launch_cost, peak_flops,
@@ -922,12 +934,12 @@ def main() -> None:
         xb = torch.from_numpy(rng.standard_normal(
             (rows, bank.tail_len + n)).astype(np.float32)).to(dev)
         g = bank.geometry
-        yk = fir_bank.launch(xb, bank.taps, g)
+        yk = fir_bank.launch(xb, bank.ptaps, g)
         yp = fir_bank_plain(xb, bank.w, g)
         torch.cuda.synchronize()
         s = snr_db(yp, yk)
         err = (yk - yp).abs().max().item()
-        t_k = device_ms(torch, lambda: fir_bank.launch(xb, bank.taps, g))
+        t_k = device_ms(torch, lambda: fir_bank.launch(xb, bank.ptaps, g))
         t_p = device_ms(torch, lambda: fir_bank_plain(xb, bank.w, g))
         body = kernel_body(g)
         nbytes, flops = launch_cost(bank.cost(n), rows)   # FIRBank.cost
@@ -989,6 +1001,41 @@ def main() -> None:
           f"without upsampling: kernel "
           f"{kernels['fir_bank']['ms_up1_sites']:.4f} ms, conv1d "
           f"{kernels['fir_bank']['library_ms_up1_sites']:.4f} ms")
+
+    # the general body alone: every site of the serving path that takes it
+    # at its path's shape and the FIR property test's random geometries at
+    # 1, 2 and 33 rows (utils/fir_digest.py), each > 110 dB against its
+    # plain version and bit-identical to the recorded digest of the body
+    # it replaced; beside each, that body's time recorded on the card
+    gen = fir_digest.run_cases(dev)
+    rec = fir_digest.recorded()
+    bad = sorted(k for k, v in gen.items() if v["equal"] is not True)
+    low = sorted(k for k, v in gen.items() if not v["snr_db"] > 110.0)
+    if bad or low:
+        fail(f"fir_bank's general body: digest not equal at {bad}; under "
+             f"110 dB at {low}")
+    for v in gen.values():
+        kernels[fir_bank.name]["max_abs_err"] = max(
+            kernels[fir_bank.name]["max_abs_err"], v["max_abs_err"])
+    # the shape picks the general body's tile: path sites on each side
+    sites_gen = [k for k in gen if not k.startswith("sweep")]
+    forms = {gen[k]["form"] for k in sites_gen}
+    if forms != {"lines", "direct"}:
+        fail(f"fir_bank's general body: the path's sites ran the tiles "
+             f"{sorted(forms)}, not both lines and direct")
+    print("fir_bank general body against the recorded body (ms, this run "
+          "/ recorded on the card before the redesign): " + "; ".join(
+              f"{k} [{gen[k]['form']}] {gen[k]['ms']:.4f} / "
+              f"{rec[k]['ms']:.4f} ({rec[k]['ms'] / gen[k]['ms']:.2f}x)"
+              for k in sites_gen))
+    slower = sorted(k for k, v in gen.items() if v["ms"] > rec[k]["ms"])
+    print(f"fir_bank general body: {len(gen)} cases, every digest equal "
+          f"to the recorded body's; slower than it at {slower or 'none'}")
+    kernels[fir_bank.name]["general_sites"] = {
+        k: {f: v[f] for f in ("rows", "n", "nf", "up", "down", "K", "form",
+                              "plan", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "gflop", "snr_db", "equal")}
+        for k, v in gen.items()}
 
     # channelizer epilogue at the 12-block, 19.2 MS/s shape (R = 16, c =
     # n_out / R frames): all 64 stations, as the unsharded two-stage path
@@ -1052,10 +1099,10 @@ def main() -> None:
         t_p = device_ms(torch, lambda: fir_decimate_plain(xd, h, down))
         dbank = make_bank([PolyFIR(h.double().cpu().numpy(),
                                    down=down)]).to(dev)
-        t_b = device_ms(torch, lambda: fir_bank.launch(xd, dbank.taps,
+        t_b = device_ms(torch, lambda: fir_bank.launch(xd, dbank.ptaps,
                                                        dbank.geometry))
         same = torch.equal(
-            fir_bank.launch(xd, dbank.taps, dbank.geometry)[:, 0], yk)
+            fir_bank.launch(xd, dbank.ptaps, dbank.geometry)[:, 0], yk)
         site = DecimatingFIR(PolyFIR(h.double().cpu().numpy(), down=down))
         bnd = bound(*launch_cost(site.cost(n), rows))    # its cost()
         w_l = h.flip(0)[None, None, :].contiguous()

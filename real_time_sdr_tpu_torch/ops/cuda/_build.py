@@ -39,8 +39,9 @@ NVCC_FLAGS = COMPILE_FLAGS + LINK_FLAGS
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
 _SIGNATURES = {
-    # xx, taps, y, B, L, nf, K, up, down, T, n_out, stream
-    "sdr_fir_bank": ([_P, _P, _P] + [_I] * 8 + [_P], ctypes.c_int),
+    # xx, ptaps, y, B, L, nf, K, up, down, T, n_out, plan (8 ints, the
+    # general body's tile: ops/cuda/fir_bank.py as_ints), stream
+    "sdr_fir_bank": ([_P, _P, _P] + [_I] * 8 + [_P, _P], ctypes.c_int),
     # xx, taps, prev_i, prev_q, demod, last_i, last_q, C, L, K, down,
     # n_out, stream
     "sdr_frontend_fused": ([_P] * 7 + [_I] * 5 + [_P], ctypes.c_int),

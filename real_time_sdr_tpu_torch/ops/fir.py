@@ -50,8 +50,10 @@ import torch
 from torch import nn
 
 from real_time_sdr_tpu_torch.ops.cuda.fir_bank import (MAX_NF, BankGeometry,
+                                                       check_geometry,
                                                        fir_bank,
-                                                       fir_bank_plain)
+                                                       fir_bank_plain,
+                                                       phase_major)
 from real_time_sdr_tpu_torch.ops.cuda.fir_kernels import fir_decimate
 
 __all__ = ["state_len", "PolyFIR", "FIRBank", "make_bank", "DecimatingFIR",
@@ -228,21 +230,28 @@ class FIRBank(nn.Module):
 
     ``bank(x, tail) -> ([y_0, ..., y_{nf-1}], new_tail)`` with the PolyFIR
     state contract; every leading dim of x is a batch row. Taps and the
-    plain version's weights are buffers, so ``.to(device)`` moves them.
+    plain version's weights are buffers, so ``.to(device)`` moves them;
+    ``ptaps`` is the taps phase-major, the table the kernel reads.
     A bf16 bank rounds its input to bf16 and hands the kernel bf16 taps as
-    f32 values (module docstring).
+    f32 values (module docstring). A geometry whose window of 32 outputs,
+    ceil(31*down/up) + ceil(K/up) samples, does not fit one SM's shared
+    memory (about 58,000 floats) is refused here (``check_geometry``).
     """
 
     def __init__(self, firs: list[PolyFIR]):
         super().__init__()
         _check_bank(firs)
+        check_geometry(firs[0].geometry)
         self.geometry = firs[0].geometry
         self.compute_dtype = firs[0].compute_dtype
         self.nf = len(firs)
         self._tail_len = firs[0].tail_len
         self._nz_phase = sum(_nz_phase(f.h, f.up) for f in firs)
-        self.register_buffer("taps", torch.as_tensor(
-            np.stack([f.taps32() for f in firs])))
+        taps = np.stack([f.taps32() for f in firs])
+        self.register_buffer("taps", torch.as_tensor(taps))
+        # the kernel's table (nf, up, T), the taps phase-major
+        self.register_buffer("ptaps", torch.as_tensor(
+            phase_major(taps, self.geometry.up)), persistent=False)
         self.register_buffer("w", torch.as_tensor(
             np.concatenate([f.weights() for f in firs], axis=1)))
 
@@ -263,7 +272,7 @@ class FIRBank(nn.Module):
         if self.compute_dtype == "bf16":
             xx = _round_bf16(xx)
         L = xx.shape[-1]
-        y = fir_bank(xx.reshape(-1, L), self.taps, self.w, self.geometry)
+        y = fir_bank(xx.reshape(-1, L), self.ptaps, self.w, self.geometry)
         y = y.reshape(x.shape[:-1] + y.shape[1:])     # (..., nf, n_out)
         return ([y[..., i, :] for i in range(self.nf)],
                 _tail_of(xx, self._tail_len))

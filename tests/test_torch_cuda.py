@@ -28,7 +28,12 @@ of pi*[x<0] - arg where the plain version's runs through sin, cos and
 atan2, so the two agree to rounding, 110-140 dB, and not bit for bit);
 rows of zeros and rows with a NaN take the literal detector and give the
 plain version's NaN pattern. Modes 1-3: the six FIR-bank geometries modes
-1-3 add > 110 dB. The wideband precisions (bf16 two-stage, bf16 and
+1-3 add > 110 dB at the path's rows (64 audio rails, 384 RDS rows). The
+FIR bank's general body: the FIR property test's 12 random geometries at
+1, 2 and 33 rows, nf 1-4, shifted row starts, > 110 dB; and bit-identical
+to the recorded digests of the body it replaced at every case of
+``utils/fir_digest.py``, each counted under the tile (lines or direct)
+its shape picked; T 2,001 through the direct tile. The wideband precisions (bf16 two-stage, bf16 and
 bf16x2 fused) on the card against the same frontend on the CPU: f32
 results of the tensor-core fold product > 90 dB from its plain version
 (exact products, f32 sums in another order), fused demod > 90 dB,
@@ -48,7 +53,9 @@ from real_time_sdr_tpu_torch.ops.cuda import (chan_epilogue, fir_bank,
 from real_time_sdr_tpu_torch.ops.cuda.chan_epilogue import chan_epilogue_plain
 from real_time_sdr_tpu_torch.ops.cuda.fir_bank import (TILED_TILE,
                                                        fir_bank_plain,
-                                                       kernel_body)
+                                                       general_plan,
+                                                       kernel_body,
+                                                       lines_plan)
 from real_time_sdr_tpu_torch.ops.cuda import _build, fir_kernels
 from real_time_sdr_tpu_torch.ops.cuda.fir_kernels import (STATIC_TILE,
                                                           fir_decimate_plain)
@@ -59,7 +66,7 @@ from real_time_sdr_tpu_torch.ops.fir import (DecimatingFIR, DualPhaseFIR,
 from real_time_sdr_tpu_torch.ops.cuda import pll_scan_kernel
 from real_time_sdr_tpu_torch.ops.pll import (PllCarry, PllParams, pll_init,
                                              pll_scan_plain)
-from real_time_sdr_tpu_torch.utils import synth
+from real_time_sdr_tpu_torch.utils import fir_digest, synth
 from real_time_sdr_tpu_torch.parallel.channel import ChannelBank
 from real_time_sdr_tpu_torch.utils.state import map_state
 
@@ -244,7 +251,7 @@ def test_fir_bank_kernel_matches_plain(card, site):
         return _check_decimating_site(bank, xx)
     body = kernel_body(bank.geometry)
     before = fir_bank.launches, fir_bank.body_launches[body]
-    yk = fir_bank(xx, bank.taps, bank.w, bank.geometry)
+    yk = fir_bank(xx, bank.ptaps, bank.w, bank.geometry)
     assert (fir_bank.launches, fir_bank.body_launches[body]) == tuple(
         v + 1 for v in before)
     yp = fir_bank_plain(xx, bank.w, bank.geometry)
@@ -282,7 +289,7 @@ def test_fir_bank_tiled_body_matches_plain(card, nf, k_taps, rows, n, shift):
                           seed=nf * 1000 + k_taps + n)
     assert kernel_body(bank.geometry) == "tiled"
     before = fir_bank.body_launches["tiled"]
-    yk = fir_bank(xx, bank.taps, bank.w, bank.geometry)
+    yk = fir_bank(xx, bank.ptaps, bank.w, bank.geometry)
     assert fir_bank.body_launches["tiled"] == before + 1
     yp = fir_bank_plain(xx, bank.w, bank.geometry)
     assert yk.shape == yp.shape == (rows, nf, n)
@@ -294,7 +301,7 @@ def test_fir_bank_runs_more_than_65535_rows(card, down):
     """70,000 short rows (K 101, n 16) on the flat grid, through each
     body."""
     bank, xx = _bank_case(1, 101, 70_000, 16, down=down, seed=down)
-    yk = fir_bank(xx, bank.taps, bank.w, bank.geometry)
+    yk = fir_bank(xx, bank.ptaps, bank.w, bank.geometry)
     yp = fir_bank_plain(xx, bank.w, bank.geometry)
     assert yk.shape == yp.shape == (70_000, 1, 16 // down)
     assert _snr(yp, yk) > 110.0
@@ -635,17 +642,85 @@ def test_fir_bank_mode_sites_match_plain(card, mode, site):
     for name in site.split("."):
         bank = getattr(bank, name)
     rng = np.random.default_rng(mode)
-    rows = 4 if "audio" in site else 6
+    # the path's rows: 64 audio rails over 12 blocks, 32 channels x 12
+    # blocks of RDS baseband, one block each
+    rows, n = (64, 12 * rx.cfg.if_block) if "audio" in site else (
+        384, rx.cfg.if_block)
     xx = torch.from_numpy(rng.standard_normal(
-        (rows, bank.tail_len + 2 * rx.cfg.if_block)).astype(
-            np.float32)).cuda()
+        (rows, bank.tail_len + n)).astype(np.float32)).cuda()
     if isinstance(bank, DecimatingFIR):         # mode 1's audio, down 9
         return _check_decimating_site(bank, xx)
     g = bank.geometry
     assert kernel_body(g) == "general"
-    yk = fir_bank(xx, bank.taps, bank.w, g)
+    yk = fir_bank(xx, bank.ptaps, bank.w, g)
     yp = fir_bank_plain(xx, bank.w, g)
     assert yk.shape == yp.shape
+    assert _snr(yp, yk) > 110.0
+
+
+@pytest.mark.parametrize("seed", range(12))
+@pytest.mark.parametrize("rows", [1, 2, 33])
+def test_fir_bank_sweep_geometries_match_plain(card, seed, rows):
+    """The FIR property test's random geometries through the kernel (the
+    general body, or the tiled one at up = down = 1), nf 1-4 and row starts
+    shifted off 16-byte boundaries, > 110 dB against the plain version."""
+    up, down, k_taps, n = fir_digest.random_geometry(
+        np.random.default_rng(1000 + seed))
+    nf = 1 + (seed + rows + 1) % 4
+    shift = (seed + 2 * rows) % 4
+    rng = np.random.default_rng(seed * 10 + rows)
+    bank = make_bank([PolyFIR(rng.standard_normal(k_taps), up=up, down=down)
+                      for _ in range(nf)]).cuda()
+    length = bank.tail_len + n
+    store = torch.from_numpy(rng.standard_normal(
+        rows * length + shift).astype(np.float32)).cuda()
+    xx = store[shift:].view(rows, length)
+    body = kernel_body(bank.geometry)
+    before = fir_bank.body_launches[body]
+    yk = fir_bank(xx, bank.ptaps, bank.w, bank.geometry)
+    assert fir_bank.body_launches[body] == before + 1
+    yp = fir_bank_plain(xx, bank.w, bank.geometry)
+    assert yk.shape == yp.shape == (rows, nf, n * up // down)
+    assert _snr(yp, yk) > 110.0
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in fir_digest.cases()])
+def test_fir_bank_general_body_digests(card, name):
+    """Bit-identical to the recorded digests of the body the general body
+    replaced (utils/fir_digest.py, fir_bank_digests.json): the serving
+    path's sites at their shapes, the random geometries at 1, 2 and 33
+    rows; one launch of the general body each, counted under the tile
+    its shape picked."""
+    case = next(c for c in fir_digest.cases() if c["name"] == name)
+    bank, xx, n = fir_digest.case_inputs(case, "cuda")
+    g = bank.geometry
+    assert kernel_body(g) == "general"
+    tile = "general." + general_plan(g, xx.shape[0], g.n_out(n),
+                                     bank.nf).form
+    counts = fir_bank.body_launches
+    before = fir_bank.launches, counts["general"], counts[tile]
+    y = fir_bank(xx, bank.ptaps, bank.w, g)
+    assert (fir_bank.launches, counts["general"], counts[tile]) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    assert fir_digest.digest(y) == fir_digest.recorded()[name]["digest"]
+
+
+@pytest.mark.parametrize("nf", [1, 4])
+def test_fir_bank_long_taps_run_the_direct_tile(card, nf):
+    """T 2,001 (up 1, down 2, K 2,001), where no lines tile fits shared
+    memory: the direct tile runs it, > 110 dB against the plain version."""
+    rng = np.random.default_rng(nf)
+    bank = make_bank([PolyFIR(rng.standard_normal(2001), up=1, down=2)
+                      for _ in range(nf)]).cuda()
+    g = bank.geometry
+    assert lines_plan(g, 3, 1000, nf) is None
+    xx = torch.from_numpy(rng.standard_normal(
+        (3, bank.tail_len + 2000)).astype(np.float32)).cuda()
+    before = fir_bank.body_launches["general.direct"]
+    yk = fir_bank(xx, bank.ptaps, bank.w, g)
+    assert fir_bank.body_launches["general.direct"] == before + 1
+    yp = fir_bank_plain(xx, bank.w, g)
+    assert yk.shape == yp.shape == (3, nf, 1000)
     assert _snr(yp, yk) > 110.0
 
 
