@@ -248,7 +248,26 @@ non-zero on failure:
    --blocks 30 --sigmas 0,0.08`` (4 CSV rows, BER 0 and PS by both framers
    at span 2 at sigma 0), then ``cli 0 r --monitor snap.npz
    --monitor-every 4`` on a 48-block capture with ``viz 0 --live
-   snap.npz --frames 2`` beside it (both exit 0, ``live.png`` written).
+   snap.npz --frames 2`` beside it (both exit 0, ``live.png`` written);
+10. the walkthroughs (``real_time_sdr_tpu_torch/examples/``, the ports of
+   ``examples/*.py``), each ``run(device="cuda")`` on its synthesized
+   fixture with its script's own check (a ``GateError`` fails the run):
+   ``mono_to_wav`` (24 blocks, the WAV holds every sample at 48 kHz),
+   ``stereo_rds_events`` (96 blocks at tier 3: PS, PI, PTY, RadioText, the
+   clock, AF and TP as sent), ``wideband_multistation`` (4 stations at 9.6
+   MS/s, 24 one-block replays of ``run_wideband_jit``: 4/4 PS as sent),
+   ``retune_station`` (2 stations, 48 blocks, station 1 retuned after 24:
+   ch0 ``SVC-A``, ch1 ``SVC-B`` then ``SVC-C``, no new graph, station 0
+   ``torch.equal`` to a run with no retune), ``time_sharded_offline`` (16
+   blocks as 8 shards against ``jit_run_blocks``: RDS bits equal, every
+   block's audio > 100 dB) and ``checkpoint_resume`` (12 blocks as 6 + 6
+   through a checkpoint: audio and RDS bits equal); one line each with its
+   wall seconds, its result and the kernels it launched (its counts set
+   to 0 just before it and read just after); ``mono_to_wav`` and
+   ``stereo_rds_events`` again on the CPU on the same bytes (audio > 60 dB,
+   the events identical); then ``python -m
+   real_time_sdr_tpu_torch.examples.stereo_rds_events`` in a temporary
+   directory (exit 0, the card run's summary line).
 
 Each path's kernel counts are set to 0 just before it and read just after
 (a CLI run is a process of its own: its counts start at 0 and are read from
@@ -259,9 +278,15 @@ A ``graphs:`` JSON line gathers the graphed paths' numbers. The last two
 lines are the kernels' JSON and the device JSON.
 ``--profile DIR`` also writes a torch.profiler table and Chrome trace of
 one warm segment of each path (the staged mode-0 segment among them, and
-its graphed form) to DIR and prints the segment's device busy time, idle share, FIR-bank
-device time and the device time of its matrix products (``aten::mm``: the
-wideband fold product), at every precision of phase 5.
+its graphed form) to DIR, the second of two calls recorded, and prints the
+segment's device busy time, idle share, FIR-bank device time and the
+device time of its matrix products (``aten::mm``: the wideband fold
+product), at every precision of phase 5. Where the profiler recorded no
+device time for the product, its time from CUDA events at the segment's
+shapes is added to device busy (``utils.logging.device_busy``), and the
+line says which of the two it is; a second line gives the same call
+recorded alone in a window of its own (device busy, device records,
+whether the products were recorded).
 ``--sass DIR`` writes ``cuobjdump -sass`` of the built library's
 ``pll_scan``, ``frontend_fused``, ``mm_timing`` and ``costas_scan`` kernels
 to DIR. ``--kernels`` stops
@@ -648,9 +673,11 @@ def device_busy_ms(torch, fn) -> float:
     """Device busy ms of one call of fn up to a synchronize: the self device
     time of every device op torch.profiler records (a graph replay's
     kernels among them), in the second of two profiled calls (a window's
-    first records can go missing)."""
-    from torch.autograd import DeviceType
+    first records can go missing; ``utils.logging.device_busy``). Says so
+    where matrix products ran that the profiler did not record."""
     from torch.profiler import ProfilerActivity, profile, schedule
+
+    from real_time_sdr_tpu_torch.utils.logging import device_busy
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
@@ -660,27 +687,51 @@ def device_busy_ms(torch, fn) -> float:
         prof.step()             # the recorded window: the second call
         fn()
         torch.cuda.synchronize()
-    # the step's own annotation spans the window on the device: not work
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not e.key.startswith("ProfilerStep")) / 1e3
+    busy = device_busy(prof.key_averages())
+    if busy["source"] == "missing":
+        print(f"  (this device busy lacks {busy['calls']} matrix product(s) "
+              "the profiler recorded no device time for)")
+    return busy["busy_ms"]
 
 
-def profile_segment(torch, card, path, name, run, run_ms, top=0):
+def profile_segment(torch, card, path, name, run, run_ms, top=0,
+                    product=None):
     """torch.profiler table of one warm segment -> DIR/<name>.txt and its
-    Chrome trace -> DIR/<name>.json (``utils.logging.device_trace``);
-    prints device busy time and idle share, and with ``top`` the top
-    device kernels by their own device time."""
+    Chrome trace -> DIR/<name>.json (``utils.logging.device_trace``, the
+    second of two calls recorded); prints device busy time and idle share,
+    and with ``top`` the top device kernels by their own device time.
+    ``product`` runs one of the segment's matrix products (the wideband
+    fold product) at its shapes: where the profiler recorded no device time
+    for them, their time from CUDA events is added to device busy
+    (``utils.logging.device_busy``), and the line says which. Beside it,
+    the same call alone in a window of its own (-> DIR/<name>_cold.json):
+    its device busy, its count of device records against the warm
+    window's, and whether it recorded the products."""
     from torch.autograd import DeviceType
 
-    from real_time_sdr_tpu_torch.utils.logging import device_trace
+    from real_time_sdr_tpu_torch.utils.logging import (device_busy,
+                                                       device_trace)
     torch.cuda.synchronize()
-    with device_trace(path, name) as prof:
+    # the same call alone in a window of its own (how a window used to
+    # be recorded): whether a window's first records go missing
+    with device_trace(path, f"{name}_cold") as prof:
+        run()
+        torch.cuda.synchronize()
+    cold = prof.key_averages()
+    with device_trace(path, name, warmup=1) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()             # the recorded window: the second call
         run()
         torch.cuda.synchronize()
     avg = prof.key_averages()
-    busy_us = sum(e.self_device_time_total for e in avg
-                  if e.device_type == DeviceType.CUDA)
+    event_ms = None if product is None else device_ms(torch, product)
+    busy = device_busy(avg, event_ms)
+    cold_busy = device_busy(cold)
+
+    def kernels(rows):
+        return sum(e.count for e in rows if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith("ProfilerStep"))
     fir_us = {body: sum(e.self_device_time_total for e in avg
                         if e.device_type == DeviceType.CUDA
                         and f"fir_bank_{body}" in e.key)
@@ -688,33 +739,46 @@ def profile_segment(torch, card, path, name, run, run_ms, top=0):
     fd_us = sum(e.self_device_time_total for e in avg
                 if e.device_type == DeviceType.CUDA
                 and "fir_decimate" in e.key)
-    # the wideband fold product: the device time of the kernels aten::mm
-    # launched. The profiler of the card's machine does not record every
-    # library GEMM kernel: where an aten::mm ran and no device time came
-    # with it, the busy time lacks the product (phase 3 times it)
-    mm = [e for e in avg if e.key == "aten::mm"]
-    mm_us = sum(e.device_time_total for e in mm)
-    mm_txt = (f"{mm_us / 1e3:.3f} ms" if mm_us or not mm else
-              "not recorded by the profiler: device busy lacks it")
+    calls = f"{busy['calls']} call(s)"
+    if busy["source"] == "none":
+        mm_txt = "none ran"
+    elif busy["source"] == "missing":
+        mm_txt = (f"{calls} not recorded by the profiler and not timed: "
+                  "device busy lacks them")
+    else:
+        mm_txt = (f"{busy['product_ms']:.3f} ms ({calls}), "
+                  + ("recorded by the profiler" if busy["source"] ==
+                     "profiler" else "product from CUDA events, added to "
+                     "device busy (the profiler recorded no device time "
+                     "for it)")
+                  + ("" if event_ms is None else
+                     f"; CUDA events {event_ms:.3f} ms a call"))
     table = avg.table(sort_by="device_time_total", row_limit=40)
     out = os.path.join(path, f"{name}.txt")
     with open(out, "w") as f:
         f.write(f"{card}\n{table}\n")
     print(f"profile of one warm {name} segment -> {out}: device busy "
-          f"{busy_us / 1e3:.3f} ms of the ~{run_ms:.3f} ms run (idle share "
-          f"{1 - busy_us / 1e3 / run_ms:.2f}); FIR-bank kernels "
+          f"{busy['busy_ms']:.3f} ms of the ~{run_ms:.3f} ms run (idle share "
+          f"{1 - busy['busy_ms'] / run_ms:.2f}); FIR-bank kernels "
           f"{sum(fir_us.values()) / 1e3:.3f} ms (tiled "
           f"{fir_us['tiled'] / 1e3:.3f}, general "
           f"{fir_us['general'] / 1e3:.3f}); fir_decimate "
           f"{fd_us / 1e3:.3f} ms; matrix products (aten::mm) {mm_txt}")
+    print(f"  {name}, the same call in a window of its own: device busy "
+          f"{cold_busy['busy_ms']:.3f} ms, {kernels(cold)} device records "
+          f"against {kernels(avg)} in the warm window; matrix products "
+          + {"none": "none ran", "profiler": "recorded",
+             "missing": "not recorded"}[cold_busy["source"]])
     print("\n".join(table.splitlines()[:22]))
     if top:
         dev_ev = sorted((e for e in avg if e.device_type == DeviceType.CUDA
-                         and e.self_device_time_total > 0),
+                         and e.self_device_time_total > 0
+                         and not e.key.startswith("ProfilerStep")),
                         key=lambda e: -e.self_device_time_total)
         print(f"top {top} device ops of the {name} run by device time: "
               + "; ".join(f"{e.key[:60]} {e.self_device_time_total:.1f} us "
                           f"x{e.count}" for e in dev_ev[:top]))
+    return busy
 
 
 def main() -> None:
@@ -742,6 +806,11 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a card")
     try:
+        from real_time_sdr_tpu_torch.examples import GateError
+        from real_time_sdr_tpu_torch.examples import snr_db as ex_snr_db
+        from real_time_sdr_tpu_torch.examples import (
+            checkpoint_resume, mono_to_wav, retune_station,
+            stereo_rds_events, time_sharded_offline, wideband_multistation)
         from real_time_sdr_tpu_torch.models.channelizer import (
             Channelizer, fold_product, fold_product_plain)
         from real_time_sdr_tpu_torch.models.rds_alt import AltRdsReceiver
@@ -1362,18 +1431,25 @@ def main() -> None:
             cfg, wide_fs, offs, compute_dtype=dt, device=dev)
         if not isinstance(wb_fe["fused", dt], FusedWidebandFrontend):
             fail("make_wideband_frontend did not pick the fused frontend")
+
+    def fold_operands(fe_w, rails_):
+        """The fold product's operands (frames, weights) of a wideband
+        frontend on ``rails_`` (2, n_wb + 4096), at one segment's shapes,
+        and the cost() that counts the product."""
+        if isinstance(fe_w, Channelizer):
+            tl = fe_w.fold_tail
+            fr_ = fe_w.fold_frames(rails_[0, :tl + n_wb],
+                                   rails_[1, :tl + n_wb],
+                                   -(-(n_wb // fe_w.decim) // fe_w.fold_R))
+            return fr_, fe_w.fold_W, fe_w.fold_cost(n_wb)
+        tl = fe_w.tail_len
+        fr_ = fe_w.frames(rails_[0, :tl + n_wb], rails_[1, :tl + n_wb])
+        return fr_, fe_w.w, fe_w.cost(n_wb)
+
     rails = 0.3 * torch.randn((2, n_wb + 4096), device=dev, generator=gen)
     fold_rows = {}
     for (path, dt), fe_w in wb_fe.items():
-        if path == "two_stage":
-            tl = fe_w.fold_tail
-            fr = fe_w.fold_frames(rails[0, :tl + n_wb], rails[1, :tl + n_wb],
-                                  -(-(n_wb // fe_w.decim) // fe_w.fold_R))
-            w_op, cost = fe_w.fold_W, fe_w.fold_cost(n_wb)
-        else:
-            tl = fe_w.tail_len
-            fr = fe_w.frames(rails[0, :tl + n_wb], rails[1, :tl + n_wb])
-            w_op, cost = fe_w.w, fe_w.cost(n_wb)
+        fr, w_op, cost = fold_operands(fe_w, rails)
         y = fold_product(fr, w_op)
         if dt == "f32":
             plain = lambda: fr.double() @ w_op.double()        # noqa: E731
@@ -2290,9 +2366,15 @@ def main() -> None:
         del dsegs
         if args.profile:
             seg = torch.from_numpy(wsegs[0]).to(dev)
+            # one fold product at the segment's shapes, for the device
+            # busy of a window in which the profiler missed its kernels
+            fr_p, w_p, _ = fold_operands(fe, 0.3 * torch.randn(
+                (2, n_wb + 4096), device=dev, generator=gen))
             profile_segment(torch, card, args.profile, path,
                             lambda: wbank.run_wideband_u8(bs, fe, seg, fs_),
-                            med - statistics.median(h2d))
+                            med - statistics.median(h2d),
+                            product=lambda: fold_product(fr_p, w_p))
+            del fr_p, w_p
         return kept
 
     ch = wb_fe["two_stage", "f32"]
@@ -3288,6 +3370,121 @@ def main() -> None:
             fail("the live view rendered no frame")
         print(f"phase 9 subprocesses: {sub_s:.1f} s wall; phase 9 "
               f"{time.perf_counter() - t9:.1f} s")
+
+    # -- 10. the walkthroughs (real_time_sdr_tpu_torch/examples/) ----------
+    t10 = time.perf_counter()
+    ff, fb, fd = frontend_fused.name, fir_bank.name, fir_decimate.name
+    both = ("tiled", "general")
+    with tempfile.TemporaryDirectory() as tmp10:
+        fixtures = dict(
+            mono_to_wav=mono_to_wav.fixture(),
+            stereo_rds_events=stereo_rds_events.fixture(),
+            wideband_multistation=wideband_multistation.fixture(),
+            retune_station=retune_station.fixture(),
+            time_sharded_offline=time_sharded_offline.fixture(),
+            checkpoint_resume=checkpoint_resume.fixture())
+        print(f"walkthrough fixtures synthesized in "
+              f"{time.perf_counter() - t10:.1f} s")
+        wav = {d: os.path.join(tmp10, f"mono_{d}.wav")
+               for d in ("cuda", "cpu")}
+        walks = {
+            "mono_to_wav": (lambda d, x: mono_to_wav.run(
+                x, wav[d.type], device=d), (ff, fd), ()),
+            "stereo_rds_events": (lambda d, x: stereo_rds_events.run(
+                x[0], sent=x[1], device=d), (ff, fb, fd), both),
+            "wideband_multistation": (lambda d, x: wideband_multistation.run(
+                x, device=d), (fb, fd), both),
+            "retune_station": (lambda d, x: retune_station.run(
+                x, device=d), (fb, fd), both),
+            "time_sharded_offline": (lambda d, x: time_sharded_offline.run(
+                x, device=d), (ff, fb, fd), both),
+            "checkpoint_resume": (lambda d, x: checkpoint_resume.run(
+                x, os.path.join(tmp10, "receiver.npz"), device=d),
+                (ff, fb, fd), both)}
+
+        def walk(name, device):
+            """One walkthrough's run() on ``device``: its result and wall
+            seconds; a failed gate fails the run."""
+            call, _, _ = walks[name]
+            t_ = time.perf_counter()
+            try:
+                res = call(torch.device(device), fixtures[name])
+            except GateError as e:
+                fail(f"walkthrough {name} on {device}: {e}")
+            return res, time.perf_counter() - t_
+
+        def shown(name, r):
+            if name == "mono_to_wav":
+                return (f"{r.audio.size} samples at {r.fs} Hz in the WAV, "
+                        f"peak {np.abs(r.audio).max():.3f}")
+            if name == "stereo_rds_events":
+                ev = r.events
+                return (f"PS {ev.ps_name!r}, PI {ev.pi and hex(ev.pi)}, PTY "
+                        f"{ev.pty!r}, RT {ev.radiotext.rstrip()!r}, CT "
+                        f"{ev.clock_utc}, AF {ev.alt_freqs_mhz}, TP "
+                        f"{ev.traffic_program}: as sent; {len(r.log)} "
+                        "events")
+            if name == "wideband_multistation":
+                return (f"{r.decoded}/{len(r.events)} stations' PS as sent "
+                        f"({r.frontend})")
+            if name == "retune_station":
+                return (f"PS before {r.before}, after {r.after}; graphs "
+                        f"{r.graphs_before} before the retune, "
+                        f"{r.graphs_after} after; station 0 equal to the "
+                        f"run with no retune {r.station0_equal}")
+            if name == "time_sharded_offline":
+                return (f"sharded vs sequential: audio {r.snr_db:.1f} dB, "
+                        f"worst block {r.worst_block_db:.1f} dB (bound "
+                        f"{time_sharded_offline.MIN_BLOCK_SNR_DB:.0f}), RDS "
+                        f"bits identical {r.bits_equal}")
+            return (f"split run == uninterrupted run: audio "
+                    f"{r.audio_equal}, RDS bits {r.bits_equal} "
+                    f"({r.nbytes}-byte checkpoint)")
+
+        card_walks, walk_s = {}, {}
+        for name, (_, needed, bodies) in walks.items():
+            reset_counts()
+            card_walks[name], walk_s[name] = walk(name, "cuda")
+            count_path(f"example_{name}", needed, bodies)
+            ran = {k: v for k, v in by_path[f"example_{name}"].items() if v}
+            print(f"walkthrough {name} on the card: {walk_s[name]:.2f} s "
+                  f"wall (fixture ready, first call included); "
+                  f"{shown(name, card_walks[name])}; kernels launched {ran}")
+        if not card_walks["retune_station"].graphs_before:
+            fail("the retune walkthrough captured no graph on the card")
+        # the card against the CPU on the same bytes
+        mono_cpu, _ = walk("mono_to_wav", "cpu")
+        st_cpu, _ = walk("stereo_rds_events", "cpu")
+        mono_card, st_card = (card_walks["mono_to_wav"],
+                              card_walks["stereo_rds_events"])
+        s_mono = ex_snr_db(mono_cpu.audio, mono_card.audio)
+        s_st = min(ex_snr_db(st_cpu.left, st_card.left),
+                   ex_snr_db(st_cpu.right, st_card.right))
+        same_events = st_cpu.log == st_card.log and st_cpu.events == \
+            st_card.events
+        print(f"walkthroughs, card against CPU on the same bytes: "
+              f"mono_to_wav audio {s_mono:.1f} dB; stereo_rds_events audio "
+              f"{s_st:.1f} dB (the worse rail), events identical "
+              f"{same_events} ({len(st_card.log)} events)")
+        if not (s_mono > 60.0 and s_st > 60.0 and same_events):
+            fail("a walkthrough on the card disagrees with its CPU run")
+        # the module entry, as a user starts it, in a directory of its own
+        t_ = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "real_time_sdr_tpu_torch.examples.stereo_rds_events"],
+            cwd=tmp10, env=env, capture_output=True, text=True, timeout=600)
+        want = stereo_rds_events.summary(st_card)[0].strip()
+        lines = proc.stdout.splitlines()
+        print(f"python -m real_time_sdr_tpu_torch.examples.stereo_rds_events"
+              f": exit {proc.returncode} in {time.perf_counter() - t_:.1f} s"
+              f", {len(lines)} lines; summary line {want in lines}")
+        if proc.returncode != 0 or want not in lines:
+            fail(f"the stereo_rds_events module entry failed (exit "
+                 f"{proc.returncode}):\n{proc.stderr[-3000:]}")
+    print(f"phase 10 (walkthroughs) {time.perf_counter() - t10:.1f} s; "
+          f"walls {json.dumps({k: round(v, 3) for k, v in walk_s.items()})}"
+          f"; on {card}")
 
     if "jax" in sys.modules:
         fail("jax was imported")

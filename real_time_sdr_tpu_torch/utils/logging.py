@@ -19,7 +19,7 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, schedule
 
 from real_time_sdr_tpu_torch.ops.fir import DecimatingFIR
 from real_time_sdr_tpu_torch.ops.sync import FeedforwardSync
@@ -27,7 +27,7 @@ from real_time_sdr_tpu_torch.ops.sync import FeedforwardSync
 __all__ = ["log_vector", "BlockTimer", "H100_HBM_BPS", "H100_F32_FLOPS",
            "H100_BF16_FLOPS", "F32_LATENCY_CYCLES", "peak_flops",
            "roofline_ms", "launch_cost", "stage_costs",
-           "speed_of_light_report", "device_trace"]
+           "speed_of_light_report", "device_trace", "device_busy"]
 
 # NVIDIA H100 SXM data sheet (80 GB HBM3, 700 W): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores (every kernel of the port), and the dense bf16
@@ -305,15 +305,52 @@ def speed_of_light_report(rx, file=None, channels: int = 1,
 
 
 @contextlib.contextmanager
-def device_trace(log_dir: str, name: str = "trace"):
+def device_trace(log_dir: str, name: str = "trace", warmup: int = 0):
     """torch.profiler around a region (CPU activity, and the card's when
     there is one); yields the profiler, whose ``key_averages()`` are ready
     after the region, and writes a Chrome trace to <log_dir>/<name>.json
-    (open it in chrome://tracing or Perfetto)."""
+    (open it in chrome://tracing or Perfetto). With ``warmup`` n the
+    region calls ``prof.step()`` after each of its first n calls, and only
+    the call after them is recorded: a window's first records can go
+    missing on the card."""
     os.makedirs(log_dir, exist_ok=True)
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
+    sched = (schedule(wait=0, warmup=warmup, active=1, repeat=1) if warmup
+             else None)
+    with profile(activities=acts, schedule=sched) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, f"{name}.json"))
+
+
+def device_busy(averages, product_ms: float | None = None) -> dict:
+    """Device busy of a profiled window from its ``key_averages()``: the
+    self device time of every device op (the schedule's ``ProfilerStep``
+    annotations, which span the window, excepted), with the window's
+    matrix products (``aten::mm``: the wideband fold product) in it.
+
+    The profiler does not record every library GEMM kernel. Where an
+    ``aten::mm`` ran and no device time came with it, ``product_ms`` (one
+    product's device time from CUDA events) times its calls is added.
+    Returns ``busy_ms``, ``product_ms`` (None when unknown), ``calls`` (of
+    ``aten::mm``) and ``source``: "profiler", "CUDA events", "none" (no
+    product ran) or "missing" (a product ran unrecorded and no time was
+    given: ``busy_ms`` lacks it)."""
+    from torch.autograd import DeviceType
+    busy_us = sum(e.self_device_time_total for e in averages
+                  if e.device_type == DeviceType.CUDA
+                  and not e.key.startswith("ProfilerStep"))
+    mm = [e for e in averages if e.key == "aten::mm"]
+    calls = sum(e.count for e in mm)
+    recorded_us = sum(e.device_time_total for e in mm)
+    out = dict(busy_ms=busy_us / 1e3, product_ms=0.0, calls=calls,
+               source="none")
+    if recorded_us > 0:
+        out.update(product_ms=recorded_us / 1e3, source="profiler")
+    elif calls and product_ms is None:
+        out.update(product_ms=None, source="missing")
+    elif calls:
+        out.update(busy_ms=out["busy_ms"] + calls * product_ms,
+                   product_ms=calls * product_ms, source="CUDA events")
+    return out

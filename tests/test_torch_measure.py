@@ -198,6 +198,74 @@ def test_device_trace_writes_a_trace(tmp_path):
     assert len(prof.key_averages()) > 0
 
 
+def test_device_trace_records_the_call_after_its_warmup(tmp_path):
+    """With ``warmup=1`` only the call after ``prof.step()`` is recorded
+    (and written to the trace)."""
+    a, b = torch.ones(16, 16), torch.ones(16, 16)
+    with tlog.device_trace(str(tmp_path), name="warm", warmup=1) as prof:
+        a @ b
+        prof.step()
+        a @ b
+        a @ b
+    mm = [e for e in prof.key_averages() if e.key == "aten::mm"]
+    assert sum(e.count for e in mm) == 2
+    assert (tmp_path / "warm.json").stat().st_size > 0
+
+
+def _avg(key, device_type, self_us=0.0, total_us=0.0, count=1):
+    """One row of ``key_averages()`` as ``device_busy`` reads it."""
+    from types import SimpleNamespace
+    return SimpleNamespace(key=key, device_type=device_type, count=count,
+                           self_device_time_total=self_us,
+                           device_time_total=total_us)
+
+
+def test_device_busy_adds_an_unrecorded_product():
+    """An ``aten::mm`` that ran with no device time: its CUDA-event time
+    (per call) is added, once per call, and labelled as such; the
+    schedule's step annotation is not work."""
+    from torch.autograd import DeviceType
+    avg = [_avg("aten::mm", DeviceType.CPU, count=2),
+           _avg("fir_bank_tiled", DeviceType.CUDA, self_us=300.0),
+           _avg("ProfilerStep#1", DeviceType.CUDA, self_us=9000.0)]
+    got = tlog.device_busy(avg, product_ms=1.5)
+    assert got == dict(busy_ms=0.3 + 3.0, product_ms=3.0, calls=2,
+                       source="CUDA events")
+    # no time given: the busy time is the profiler's, and says it lacks it
+    got = tlog.device_busy(avg)
+    assert got["busy_ms"] == 0.3 and got["product_ms"] is None
+    assert got["source"] == "missing"
+
+
+def test_device_busy_does_not_add_a_recorded_product_twice():
+    """Where the profiler recorded the product's kernel, the busy time is
+    the profiler's own and the product comes from it."""
+    from torch.autograd import DeviceType
+    avg = [_avg("aten::mm", DeviceType.CPU, total_us=3200.0),
+           _avg("sm90_xmma_gemm_f32f32", DeviceType.CUDA, self_us=3200.0),
+           _avg("fir_bank_tiled", DeviceType.CUDA, self_us=300.0)]
+    got = tlog.device_busy(avg, product_ms=3.1)
+    assert got == dict(busy_ms=3.5, product_ms=3.2, calls=1,
+                       source="profiler")
+    # no product ran: nothing added, whatever time is given
+    got = tlog.device_busy(avg[1:], product_ms=3.1)
+    assert got == dict(busy_ms=3.5, product_ms=0.0, calls=0, source="none")
+
+
+def test_device_busy_on_a_cpu_profile(tmp_path):
+    """A real CPU profile (no device time at all) of two products: the
+    event time is added for both."""
+    a, b = torch.ones(32, 32), torch.ones(32, 32)
+    with tlog.device_trace(str(tmp_path), name="mm", warmup=1) as prof:
+        a @ b
+        prof.step()
+        a @ b
+        a @ b
+    got = tlog.device_busy(prof.key_averages(), product_ms=0.25)
+    assert got == dict(busy_ms=0.5, product_ms=0.5, calls=2,
+                       source="CUDA events")
+
+
 def test_io_files_match_jax(tmp_path, capsys):
     rng = np.random.default_rng(1)
     iq = rng.integers(0, 256, 2000).astype(np.uint8)

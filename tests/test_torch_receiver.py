@@ -279,9 +279,11 @@ def test_port_runs_without_jax():
     the CLI on one block and the wideband CLI on one block of two stations
     with a checkpoint, and the graphed entries through the graph cache's
     bookkeeping (``HostGraph``: a bank segment, a time-sharded run, a
-    sharded wideband step and an alternative decode), loads no jax, no module of the JAX package
-    ``real_time_sdr_tpu`` and no ``golden`` (a subprocess: this test
-    process already imported all three)."""
+    sharded wideband step and an alternative decode), and importing the
+    six walkthroughs of ``examples/`` with one of them run on the CPU
+    (``checkpoint_resume.main(["--cpu"])``), loads no jax, no module of the
+    JAX package ``real_time_sdr_tpu`` and no ``golden`` (a subprocess: this
+    test process already imported all three)."""
     code = textwrap.dedent("""
         import os
         import sys
@@ -399,6 +401,18 @@ def test_port_runs_without_jax():
         assert psd.shape == (256,)
         assert callable(_viz_ber.ber_curve) and callable(viz.main)
         assert callable(golden_chain.run_stages)
+        from real_time_sdr_tpu_torch.examples import (
+            checkpoint_resume, mono_to_wav, retune_station,
+            stereo_rds_events, time_sharded_offline, wideband_multistation)
+        assert all(callable(m.run) and callable(m.main) for m in (
+            mono_to_wav, stereo_rds_events, wideband_multistation,
+            retune_station, time_sharded_offline, checkpoint_resume))
+        with tempfile.TemporaryDirectory() as d:
+            tempfile.tempdir = d
+            try:
+                assert checkpoint_resume.main(["--cpu"]) == 0
+            finally:
+                tempfile.tempdir = None
         foreign = sorted(
             m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "real_time_sdr_tpu",
