@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one card and check them.
 
-    python3 chip_smoke.py [--profile DIR] [--sass DIR] [--kernels | --loops]
+    python3 chip_smoke.py [--profile DIR] [--sass DIR]
+                          [--kernels | --loops | --experiments]
 
 Run from the root of a checkout, on a machine with one NVIDIA Hopper card
 and the CUDA toolkit. It imports no jax. Phases, each of which exits
@@ -267,7 +268,30 @@ non-zero on failure:
    ``stereo_rds_events`` again on the CPU on the same bytes (audio > 60 dB,
    the events identical); then ``python -m
    real_time_sdr_tpu_torch.examples.stereo_rds_events`` in a temporary
-   directory (exit 0, the card run's summary line).
+   directory (exit 0, the card run's summary line);
+11. the experiments (``real_time_sdr_tpu_torch/experiments/``, the ports
+   of ``experiments/*.py``) at full width: the wideband scale ladder
+   (``wideband64``: the fused frontend at 64, 128 and 256 stations, 19.2 /
+   38.4 / 76.8 MS/s, ``taps_factor`` 2 / 4 / 8, f32, 8-block segments, and
+   256 stations at bf16; per cell ms per block, MS/s wideband, x real time
+   on the capture, MS/s of station IQ, the weights' build, the first call
+   and the peak memory; each cell's graphs and buffers freed before the
+   next), its decode check at 128 and 256 stations at both precisions (3
+   real stations up to the band edge, 26 blocks: PS and PI exact; the
+   scenes synthesized in two worker processes while the card runs), every
+   FIR kernel call of one eager 256-station segment held against its
+   plain version on the path's own card tensors (> 110 dB; body, the
+   general body's tile, ms beside its bound), ``retune_latency`` at 64
+   stations (steady ms, retune p50 / min / max, no new graph, outputs
+   equal to the runs with no retune), ``e2e_latency`` (the CLI paced at a
+   capture's rate: p50 / p99, at the script's ``--segment 6 --pipeline
+   2`` and at the CLI's defaults; under ``--drop-oldest`` behind a slow sink:
+   blocks dropped through the native reader; 8 stations live in one 9.6
+   MS/s capture: >= 1x real time, both PS), then ``stage_decompose``,
+   ``mode_floors``, ``trace_top --mode 0`` and ``trace_wideband`` (64
+   stations, fused) at their defaults (their JSON lines); each
+   experiment's kernel counts, and an ``experiments:`` JSON line with
+   phase 11's wall seconds.
 
 Each path's kernel counts are set to 0 just before it and read just after
 (a CLI run is a process of its own: its counts start at 0 and are read from
@@ -294,20 +318,25 @@ after phase 3 (build and kernel checks): a short first run of a changed
 kernel; it prints no result line. ``--loops`` checks and times only the two
 loops of the alternative decode after the build, and stops; it runs from an
 older checkout of the port too (copy this script there), so that two forms
-of the loops can be timed in one call.
+of the loops can be timed in one call. ``--experiments`` runs phases 1-2
+and then phase 11 only, and stops; it prints no result line.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
+import gc
 import json
 import math
+import multiprocessing
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 CH, BLOCKS, SEGMENTS = 32, 12, 3
 CLI_BLOCKS = 192      # the CLI capture: 5.88 s of radio at mode 0
@@ -318,6 +347,10 @@ PS, PI, PTY = "H100 FM ", 0x3A5C, 5
 # copy of one PS segment of the 36-block capture.
 PS_CHANNELS = {0: 30, 1: 31, 2: 29, 3: 31}
 WB_STATIONS, WB_MULT, WB_SLOTS = 64, 8, (3, 32, 62)
+# phase 11: the wideband ladder's cells (stations, precision), each at
+# 8-block segments; the rungs whose decode check runs
+LADDER_CELLS = ((64, "f32"), (128, "f32"), (256, "f32"), (256, "bf16"))
+LADDER_SEG, DECODE_RUNGS = 8, (128, 256)
 RDS_PREFIXES = ("PI:", "PTY:", "Program Service:", "RadioText:",
                 "RDS summary:")
 # the alternative RDS receiver's station (phases 3 and 9): 32 mode-0 blocks,
@@ -793,6 +826,9 @@ def main() -> None:
     ap.add_argument("--kernels", action="store_true",
                     help="stop after the kernel checks (phase 3); prints "
                     "no result line")
+    ap.add_argument("--experiments", action="store_true",
+                    help="run the card check and the build, then only phase "
+                    "11 (the experiments), and stop; prints no result line")
     ap.add_argument("--loops", action="store_true",
                     help="check and time only the two loops of the "
                     "alternative RDS decode (mm_timing, costas_scan) after "
@@ -807,6 +843,9 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this check needs a card")
     try:
         from real_time_sdr_tpu_torch.examples import GateError
+        from real_time_sdr_tpu_torch.experiments import (
+            e2e_latency, mode_floors, retune_latency, stage_decompose,
+            trace_top, trace_wideband, wideband64)
         from real_time_sdr_tpu_torch.examples import snr_db as ex_snr_db
         from real_time_sdr_tpu_torch.examples import (
             checkpoint_resume, mono_to_wav, retune_station,
@@ -928,6 +967,324 @@ def main() -> None:
         loop_checks(torch, np, card, sm_mhz, alt_bb,
                     comb_acquire(alt_bb, ALT_SPS), alt_rx.mm_gain)
         print("--loops: stopping after the two loops' checks")
+        return
+
+    launches = {k.name: 0 for k in KERNELS}
+    graph_stats = {}         # the graphed paths' numbers, one JSON line
+    by_path, bodies_by_path, fd_bodies_by_path = {}, {}, {}
+
+    def reset_counts():
+        for k in KERNELS:
+            k.launches = 0
+        for k in (fir_bank, fir_decimate):
+            k.body_launches = dict.fromkeys(k.body_launches, 0)
+
+    def count_path(path, needed, bodies):
+        """Read the counts of the path just driven. ``needed`` kernels must
+        have launched, through these FIR-bank ``bodies``. ``fir_decimate``
+        must have launched through its static body when it is needed and
+        not at all when it is not (modes 2-3 upsample their audio)."""
+        got = {k.name: k.launches for k in KERNELS}
+        by_path[path] = got
+        bodies_by_path[path] = dict(fir_bank.body_launches)
+        fd_bodies_by_path[path] = dict(fir_decimate.body_launches)
+        for name, n in got.items():
+            launches[name] += n
+        print(f"{path} launches {got}, fir_bank bodies "
+              f"{bodies_by_path[path]}, fir_decimate bodies "
+              f"{fd_bodies_by_path[path]}")
+        for name in needed:
+            if got[name] <= 0:
+                fail(f"kernel {name} was not launched on the {path} path")
+        for body in bodies:
+            if bodies_by_path[path][body] <= 0:
+                fail(f"fir_bank's {body} body was not launched on the "
+                     f"{path} path")
+        if fir_decimate.name in needed:
+            if fd_bodies_by_path[path]["static"] <= 0:
+                fail(f"fir_decimate's static body was not launched on the "
+                     f"{path} path")
+        elif got[fir_decimate.name] != 0:
+            fail(f"fir_decimate was launched on the {path} path, whose "
+                 "audio resampler upsamples")
+
+    def count_child(path, got, needed):
+        """The counts a child process printed on its ``kernel launches``
+        line, read as ``count_path`` reads a path of this process."""
+        if got is None:
+            fail(f"the {path} child printed no kernel launches line")
+        by_path[path] = {k.name: got.get(k.name, 0) for k in KERNELS}
+        for name, n in by_path[path].items():
+            launches[name] += n
+        print(f"{path} launches {by_path[path]} (the child's count)")
+        for name in needed:
+            if by_path[path][name] <= 0:
+                fail(f"kernel {name} was not launched on the {path} path")
+
+    def ladder_site_checks(rung):
+        """Every FIR kernel call of one eager segment of ``rung``, its
+        arguments recorded (the path's own card tensors), each kernel
+        against its plain version on them (> 110 dB), with the body and
+        the general body's tile the shape picks, ms beside the plain
+        version's and the bound of the site's ``cost()``."""
+        from real_time_sdr_tpu_torch.ops.cuda.fir_bank import (
+            FirBankKernel, general_plan)
+        from real_time_sdr_tpu_torch.ops.cuda.fir_kernels import \
+            FirDecimateKernel
+        from real_time_sdr_tpu_torch.ops.fir import FIRBank
+        owner = {}
+        for mname, m in rung.rx.named_modules():
+            if isinstance(m, FIRBank):
+                owner[id(m.ptaps)] = (mname, m)
+            elif isinstance(m, DecimatingFIR):
+                owner[id(m.taps)] = (mname, m)
+        calls = []
+        orig = FirBankKernel.__call__, FirDecimateKernel.__call__
+
+        def rec_bank(self, xx, ptaps, w, geom):
+            calls.append((fir_bank.name, xx, ptaps, w, geom))
+            return orig[0](self, xx, ptaps, w, geom)
+
+        def rec_decimate(self, xx, h, down):
+            calls.append((fir_decimate.name, xx, h, down))
+            return orig[1](self, xx, h, down)
+
+        FirBankKernel.__call__ = rec_bank
+        FirDecimateKernel.__call__ = rec_decimate
+        try:
+            iw, qw = wideband64.noise_rails(rung)
+            rung.bank.run_wideband(rung.bank.init_state(), rung.fe, iw, qw,
+                                   rung.fe.init_state())
+            torch.cuda.synchronize()
+        finally:
+            FirBankKernel.__call__, FirDecimateKernel.__call__ = orig
+        sites = {}
+        for call in calls:
+            kname, xx = call[0], call[1]
+            mname, mod = owner[id(call[2])]
+            rows = xx.shape[0]
+            if kname == fir_bank.name:
+                _, _, ptaps, w, g = call
+                n = xx.shape[1] - (g.T - 1)
+                body = kernel_body(g)
+                tile = (general_plan(g, rows, g.n_out(n), ptaps.shape[0]).form
+                        if body == "general" else "-")
+                kern = functools.partial(fir_bank.launch, xx, ptaps, g)
+                plain = functools.partial(fir_bank_plain, xx, w, g)
+            else:
+                _, _, h, down = call
+                n = xx.shape[1] - (h.shape[0] - 1)
+                body, tile = decimate_body(h.shape[0], down), "-"
+                kern = functools.partial(fir_decimate.launch, xx, h, down)
+                plain = functools.partial(fir_decimate_plain, xx, h, down)
+            yk, yp = kern(), plain()
+            torch.cuda.synchronize()
+            s_ = snr_db(yp, yk)
+            err = (yk - yp).abs().max().item()
+            t_k, t_p = device_ms(torch, kern), device_ms(torch, plain)
+            bnd = bound(*launch_cost(mod.cost(n), rows))
+            print(f"kernel {kname}[ladder {len(rung.offsets)} st, {mname}]: "
+                  f"rows {rows}, n {n} -> {tuple(yk.shape)}, body {body}, "
+                  f"tile {tile}: SNR {s_:.1f} dB vs plain, max abs err "
+                  f"{err:.3g}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+                  f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
+                  f"{100 * bnd['bound_ms'] / t_k:.0f} % of it reached)")
+            if not s_ > 110.0:
+                fail(f"{kname}[ladder, {mname}] disagrees with its plain "
+                     f"version ({s_:.1f} dB)")
+            tiles = {}
+            if body == "general":       # every tile the shape admits
+                for tname, tp in fir_digest.tile_plans(
+                        g, rows, g.n_out(n), ptaps.shape[0]).items():
+                    run_t = functools.partial(fir_digest.launch_plan, xx,
+                                              ptaps, g, tp)
+                    yt = run_t()
+                    tiles[tname] = dict(equal=torch.equal(yt, yk),
+                                        snr_db=snr_db(yp, yt),
+                                        ms=device_ms(torch, run_t))
+                print(f"  {mname}, each tile on the same tensors: "
+                      + "; ".join(f"{k} {v['ms']:.4f} ms, {v['snr_db']:.1f} "
+                                  f"dB, equal to the picked tile "
+                                  f"{v['equal']}" for k, v in tiles.items()))
+                if not all(v["equal"] and v["snr_db"] > 110.0
+                           for v in tiles.values()):
+                    fail(f"fir_bank[ladder, {mname}]: a general-body tile "
+                         "disagrees")
+            sites[f"{kname}:{mname}"] = dict(
+                kernel=kname, rows=rows, n=n, body=body, tile=tile,
+                snr_db=s_, max_abs_err=err, ms=t_k, plain_ms=t_p, **bnd,
+                tiles=tiles)
+        bodies = {v["body"] for v in sites.values()
+                  if v["kernel"] == fir_bank.name}
+        n_dec = sum(v["kernel"] == fir_decimate.name for v in sites.values())
+        if bodies != {"tiled", "general"} or not n_dec:
+            fail(f"the ladder's segment ran fir_bank bodies {bodies} and "
+                 f"{n_dec} fir_decimate calls")
+        return sites
+
+    def phase_11(kernels):
+        """The experiments (``real_time_sdr_tpu_torch/experiments/``) at
+        full width on the card; with ``kernels`` (phase 3's dict) the
+        ladder's kernel sites are added to it."""
+        t11 = time.perf_counter()
+        fb, fd = fir_bank.name, fir_decimate.name
+        ff, pl = frontend_fused.name, pll_scan_kernel.name
+        both = ("tiled", "general")
+        summary = {}
+
+        def gated(what, call):
+            try:
+                return call()
+            except GateError as e:
+                fail(f"{what}: {e}")
+
+        def free():
+            gc.collect()
+            torch.cuda.empty_cache()
+            return torch.cuda.memory_allocated(dev) / 1e9
+
+        # the decode checks' scenes, synthesized on the host in worker
+        # processes while the card runs the ladder
+        ladder = {}
+        with ProcessPoolExecutor(
+                max_workers=len(DECODE_RUNGS),
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            scenes = {n: pool.submit(wideband64.scene_rails_for, n)
+                      for n in DECODE_RUNGS}
+            for n, wb in LADDER_CELLS:
+                tag = f"{n}_{wb}"
+                reset_counts()
+                rung = wideband64.build(n, "fused", wb_fir=wb, seg=LADDER_SEG,
+                                        device=dev)
+                res = wideband64.measure(rung)
+                count_path(f"ladder_{tag}", (fb, fd), both)
+                print(f"ladder {tag}: {n} stations from one "
+                      f"{res['wide_fs'] / 1e6:g} MS/s capture ({res['mult']}x"
+                      f", taps_factor {res['taps_factor']}, K_eq "
+                      f"{res['k_eq']}, {wb}), {res['seg']}-block segments, "
+                      f"{res['reps']} reps: {res['ms_per_block']:.4f} ms/block"
+                      f", {res['wideband_msps']:.1f} MS/s wideband = "
+                      f"{res['x_realtime']:.2f}x real time on the capture, "
+                      f"{res['station_msps']:g} MS/s of station IQ; weights "
+                      f"built in {res['build_s']:.2f} s, first call (graph "
+                      f"capture included) {res['first_s']:.2f} s, peak "
+                      f"memory {res['peak_gb']:.2f} GB; on {card}")
+                if n in scenes:
+                    t_ = time.perf_counter()
+                    rails = scenes[n].result()
+                    wait_s = time.perf_counter() - t_
+                    reset_counts()
+                    t_ = time.perf_counter()
+                    res["decode"] = gated(
+                        f"ladder {tag} decode check",
+                        lambda: wideband64.decode_check(rung, rails))
+                    dec_s = time.perf_counter() - t_
+                    count_path(f"ladder_{tag}_decode", (fb, fd), both)
+                    got = "; ".join(
+                        f"station {r['slot']} @ {r['offset_hz'] / 1e6:+.2f} "
+                        f"MHz PS {r['ps']!r} PI {r['pi']:#06x} groups "
+                        f"{r['groups']}" for r in res["decode"])
+                    print(f"ladder {tag} decode check, 26 blocks: {got}: "
+                          f"{len(res['decode'])}/{len(res['decode'])} PS and "
+                          f"PI as sent ({dec_s:.1f} s; waited {wait_s:.1f} s "
+                          "for the scene's synthesis)")
+                    del rails
+                if (n, wb) == (256, "f32"):
+                    res["sites"] = ladder_site_checks(rung)
+                del rung
+                res["memory_after_free_gb"] = free()
+                print(f"ladder {tag}: freed, {res['memory_after_free_gb']:.3f}"
+                      " GB still allocated")
+                ladder[tag] = res
+        summary["ladder"] = ladder
+        if kernels is not None:
+            sites = ladder["256_f32"]["sites"]
+            for name in (fb, fd):
+                kernels[name]["ladder_256_sites"] = {
+                    k: v for k, v in sites.items() if v["kernel"] == name}
+
+        reset_counts()
+        rt = gated("retune_latency",
+                   lambda: retune_latency.run(64, 8, 32, dev))
+        count_path("retune_latency", (fb, fd), both)
+        for line in retune_latency.lines(rt):
+            print("retune_latency: " + line[2:])
+        summary["retune_latency"] = rt
+        free()
+
+        e2e = {}
+        e2e["paced"] = gated("e2e_latency run 1",
+                             lambda: e2e_latency.paced_run(device=dev))
+        count_child("e2e_paced", e2e["paced"]["launches"], (ff, fb, fd, pl))
+        # the same feed at the CLI's own defaults (one block a group, one
+        # group in flight): beside phase 6's unpaced run of those flags
+        e2e["paced_defaults"] = gated(
+            "e2e_latency run 1 at the CLI's defaults",
+            lambda: e2e_latency.paced_run(pipeline=1, segment=1,
+                                          device=dev))
+        count_child("e2e_paced_defaults", e2e["paced_defaults"]["launches"],
+                    (ff, fb, fd, pl))
+        e2e["overload"] = gated("e2e_latency run 2",
+                                lambda: e2e_latency.overload_run(device=dev))
+        count_child("e2e_overload", e2e["overload"]["launches"],
+                    (ff, fb, fd, pl))
+        e2e["wideband"] = gated(
+            "e2e_latency --wideband 8",
+            lambda: e2e_latency.wideband_run(8, device=dev))
+        count_child("e2e_wideband", e2e["wideband"]["launches"],
+                    (fb, fd, pl))
+        for run_name, r in e2e.items():
+            for line in r.pop("stderr").splitlines():
+                if line.startswith(("warmed", "total:", "block latency",
+                                    "dropped", "wideband frontend",
+                                    "warning:")) or " ps: " in line:
+                    print(f"e2e {run_name}: {line}")
+        lat, lat1 = (e2e[k]["latency"] for k in ("paced", "paced_defaults"))
+        print(f"e2e paced (--segment 6 --pipeline 2): p50 {lat['p50_ms']:.1f}"
+              f" ms, p99 {lat['p99_ms']:.1f} ms; at the CLI's defaults: p50 "
+              f"{lat1['p50_ms']:.1f} ms, p99 {lat1['p99_ms']:.1f} ms; beside "
+              f"the {lat['deadline_ms']:.2f} ms block deadline; overload: "
+              f"{e2e['overload']['dropped']} input blocks dropped through "
+              f"the native reader "
+              f"({e2e['overload']['native']}); live wideband, 8 stations: "
+              f"{e2e['wideband']['total']['x_realtime']:.1f}x real time, PS "
+              f"{e2e['wideband']['ps']}")
+        summary["e2e_latency"] = e2e
+
+        reset_counts()
+        summary["stage_decompose"] = stage_decompose.run(
+            device=dev, log=lambda ln: print("stage_decompose: " + ln))
+        count_path("stage_decompose", (ff, fb, fd), both)
+        print("stage_decompose: " + json.dumps(summary["stage_decompose"]))
+        reset_counts()
+        summary["mode_floors"] = mode_floors.run(
+            device=dev, log=lambda ln: print("mode_floors: " + ln))
+        count_path("mode_floors", (ff, fb, fd), both)
+        print("mode_floors: " + json.dumps(summary["mode_floors"]))
+        reset_counts()
+        with tempfile.TemporaryDirectory() as tdir:
+            tt = trace_top.run(mode=0, trace_dir=tdir, device=dev)
+        count_path("trace_top", (ff, fb, fd), both)
+        if tt["clock"] != "device" or not tt["busy_ms"] > 0:
+            fail("trace_top recorded no device time")
+        print("trace_top: " + json.dumps(tt))
+        summary["trace_top"] = tt
+        reset_counts()
+        with tempfile.TemporaryDirectory() as tdir:
+            tw = trace_wideband.run(trace_dir=tdir, device=dev)
+        count_path("trace_wideband", (fb, fd), both)
+        if tw["clock"] != "device" or not tw["busy_ms"] > 0:
+            fail("trace_wideband recorded no device time")
+        print("trace_wideband: " + json.dumps(tw))
+        summary["trace_wideband"] = tw
+        free()
+        summary["wall_s"] = time.perf_counter() - t11
+        print(f"phase 11 (experiments) {summary['wall_s']:.1f} s; on {card}")
+        print("experiments: " + json.dumps(summary))
+
+    if args.experiments:
+        phase_11(None)
+        print("--experiments: stopping after phase 11")
         return
 
     # -- fixture: one station, 36 blocks, tiled to 32 shifted channels -------
@@ -1577,45 +1934,6 @@ def main() -> None:
                      f"plain version ({sm_:.1f} dB)")
         print("--kernels: stopping after the kernel checks")
         return
-
-    launches = {k.name: 0 for k in KERNELS}
-    graph_stats = {}         # the graphed paths' numbers, one JSON line
-    by_path, bodies_by_path, fd_bodies_by_path = {}, {}, {}
-
-    def reset_counts():
-        for k in KERNELS:
-            k.launches = 0
-        for k in (fir_bank, fir_decimate):
-            k.body_launches = dict.fromkeys(k.body_launches, 0)
-
-    def count_path(path, needed, bodies):
-        """Read the counts of the path just driven. ``needed`` kernels must
-        have launched, through these FIR-bank ``bodies``. ``fir_decimate``
-        must have launched through its static body when it is needed and
-        not at all when it is not (modes 2-3 upsample their audio)."""
-        got = {k.name: k.launches for k in KERNELS}
-        by_path[path] = got
-        bodies_by_path[path] = dict(fir_bank.body_launches)
-        fd_bodies_by_path[path] = dict(fir_decimate.body_launches)
-        for name, n in got.items():
-            launches[name] += n
-        print(f"{path} launches {got}, fir_bank bodies "
-              f"{bodies_by_path[path]}, fir_decimate bodies "
-              f"{fd_bodies_by_path[path]}")
-        for name in needed:
-            if got[name] <= 0:
-                fail(f"kernel {name} was not launched on the {path} path")
-        for body in bodies:
-            if bodies_by_path[path][body] <= 0:
-                fail(f"fir_bank's {body} body was not launched on the "
-                     f"{path} path")
-        if fir_decimate.name in needed:
-            if fd_bodies_by_path[path]["static"] <= 0:
-                fail(f"fir_decimate's static body was not launched on the "
-                     f"{path} path")
-        elif got[fir_decimate.name] != 0:
-            fail(f"fir_decimate was launched on the {path} path, whose "
-                 "audio resampler upsamples")
 
     def run_path(path, rxp, segs_p, needed, min_ps):
         """SEGMENTS chained segments of CH ch x BLOCKS blk through
@@ -2600,13 +2918,8 @@ def main() -> None:
                 print(f"  cli: {line}")
         got = json.loads(next(ln for ln in lines if ln.startswith(
             "kernel launches: "))[len("kernel launches: "):])
-        by_path["cli"] = got
-        for name, n in got.items():
-            launches[name] += n
-        for name in (frontend_fused.name, fir_bank.name, fir_decimate.name,
-                     pll_scan_kernel.name):
-            if got.get(name, 0) <= 0:
-                fail(f"kernel {name} was not launched by the CLI")
+        count_child("cli", got, (frontend_fused.name, fir_bank.name,
+                                 fir_decimate.name, pll_scan_kernel.name))
         if not (f"Program Service: {PS}" in lines and f"PI: {PI:x}" in lines
                 and any(ln.startswith("PTY: ") for ln in lines)):
             fail("the CLI did not print the station's PS/PI/PTY")
@@ -2741,13 +3054,8 @@ def main() -> None:
             if line.startswith(("wideband frontend", "total:", "channelized",
                                 "kernel launches")):
                 print(f"  cli: {line}")
-        got = wb_launches(lines)
-        by_path["cli_wideband"] = got
-        for name, n in got.items():
-            launches[name] += n
-        for name in (fir_bank.name, fir_decimate.name, pll_scan_kernel.name):
-            if got.get(name, 0) <= 0:
-                fail(f"kernel {name} was not launched by the wideband CLI")
+        count_child("cli_wideband", wb_launches(lines),
+                    (fir_bank.name, fir_decimate.name, pll_scan_kernel.name))
         for k, ps_name in real.items():
             if f"ch{k} ps: {ps_name}" not in lines:
                 fail(f"the wideband CLI did not print station {k}'s PS")
@@ -3485,6 +3793,9 @@ def main() -> None:
     print(f"phase 10 (walkthroughs) {time.perf_counter() - t10:.1f} s; "
           f"walls {json.dumps({k: round(v, 3) for k, v in walk_s.items()})}"
           f"; on {card}")
+
+    # -- 11. the experiments (real_time_sdr_tpu_torch/experiments/) ---------
+    phase_11(kernels)
 
     if "jax" in sys.modules:
         fail("jax was imported")

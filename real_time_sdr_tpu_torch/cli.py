@@ -610,6 +610,11 @@ def _serve(args, torch, device, rx) -> int:
     fout = sys.stdout.buffer if args.output == "-" else open(args.output, "wb")
     reader = native_io.BlockReader(fin, block_bytes, depth=args.io_depth,
                                    drop_oldest=args.drop_oldest)
+    if args.drop_oldest and not reader.native:
+        print("warning: --drop-oldest is inactive: the native I/O library "
+              "(native/librtsdr_io.so; make -C native builds it) did not "
+              "load, so input is read with plain blocking reads and no "
+              "block is dropped", file=sys.stderr)
     max_pcm_bytes = (2 if stereo else 1) * cfg.audio_block * 2
     writer = native_io.BlockWriter(fout, max_pcm_bytes,
                                    depth=2 * args.io_depth)

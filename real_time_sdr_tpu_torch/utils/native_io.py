@@ -100,6 +100,12 @@ class BlockReader:
                 self._lib = lib
                 self._buf = np.empty(block_bytes, dtype=np.uint8)
 
+    @property
+    def native(self) -> bool:
+        """True while the native ring reads; False for the fallback, whose
+        plain blocking reads ignore ``depth`` and ``drop_oldest``."""
+        return self._native is not None
+
     def next(self) -> np.ndarray | None:
         """Next full block as uint8 array, or None at end of stream."""
         if self._native is not None:

@@ -128,6 +128,35 @@ def test_cli_pipeline_depth_identical(station, tmp_path, capsys):
     assert p0 == p4 and len(p0) == 8 * CFG.audio_block * 2 * 2
 
 
+
+def test_cli_warns_when_drop_oldest_is_inactive(station, tmp_path, capsys,
+                                                monkeypatch):
+    """Without the native library the reader falls back to plain blocking
+    reads, which drop nothing: ``--drop-oldest`` then prints one
+    ``warning:`` line; the exit code and the PCM are those of the run
+    without the option. With the native reader (when it loads here) there
+    is no warning."""
+    from real_time_sdr_tpu_torch.utils import native_io
+    path, _ = station
+    args = ["0", "r", "--pll-tier", "3", "--max-blocks", "3"]
+    native = native_io.available()
+    _, err_n, _ = _run(cli.main, args + ["--drop-oldest"], path,
+                       tmp_path / "n.pcm", capsys)
+    monkeypatch.setattr(native_io, "_load", lambda: None)
+    rc, err, pcm = _run(cli.main, args + ["--drop-oldest"], path,
+                        tmp_path / "d.pcm", capsys)
+    rc0, err0, pcm0 = _run(cli.main, args, path, tmp_path / "p.pcm", capsys)
+    warn = [ln for ln in err.splitlines() if ln.startswith("warning:")]
+    assert warn == ["warning: --drop-oldest is inactive: the native I/O "
+                    "library (native/librtsdr_io.so; make -C native builds "
+                    "it) did not load, so input is read with plain blocking "
+                    "reads and no block is dropped"]
+    assert rc == rc0 == 0 and pcm == pcm0
+    assert len(pcm) == 3 * CFG.audio_block * 2 * 2
+    assert "warning:" not in err0
+    if native:
+        assert "warning:" not in err_n
+
 def test_cli_staged_identical(station, tmp_path, capsys):
     path, _ = station
     args = ["0", "r", "--pll-tier", "3", "--max-blocks", "6", "--segment", "2"]
