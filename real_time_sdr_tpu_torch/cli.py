@@ -144,6 +144,15 @@ def make_parser() -> argparse.ArgumentParser:
                          "(default f32; bf16x2 splits the taps hi + lo at "
                          "twice the operations; the two-stage frontend "
                          "takes f32 or bf16)")
+    ap.add_argument("--trace-spans", default=None, metavar="PATH",
+                    help="record the serving loop's spans and counters "
+                         "(read_wait, submit, drain and what runs inside "
+                         "them, each segment's in_flight wait; segments, "
+                         "blocks, rds_feeds, graph_captures) and write them "
+                         "at exit to PATH as a Chrome-trace JSON on "
+                         "torch.profiler's clock (open it in Perfetto). "
+                         "With or without it, a running torch.profiler "
+                         "session sees each phase as one of its ranges")
     return ap
 
 
@@ -300,12 +309,21 @@ def main(argv=None) -> int:
     else:
         device = torch.device("cuda")
     from real_time_sdr_tpu_torch.models.receiver import Receiver
+    from real_time_sdr_tpu_torch.utils.logging import SpanRecorder
+    spans = SpanRecorder()
+    if args.trace_spans:
+        spans.start()
     rx = Receiver(args.mode, stereo=args.type in ("s", "r"),
                   rds=args.type == "r", pll_tier=args.pll_tier,
                   rds_timing=args.rds_timing, device=device)
-    if args.stations is not None:
-        return run_wideband(args, torch, device, rx, rx.cfg)
-    return _serve(args, torch, device, rx)
+    rx.graphs.spans = spans
+    try:
+        if args.stations is not None:
+            return run_wideband(args, torch, device, rx, rx.cfg, spans)
+        return _serve(args, torch, device, rx, spans)
+    finally:
+        if args.trace_spans:
+            spans.write(args.trace_spans)
 
 
 def _print_launches() -> None:
@@ -327,9 +345,13 @@ def _read_into(fin, view) -> int:
     return got
 
 
-def run_wideband(args, torch, device, rx, cfg) -> int:
+def run_wideband(args, torch, device, rx, cfg, spans) -> int:
     """Multi-station mode: channelize a wideband capture and decode every
-    station in parallel through a channel bank."""
+    station in parallel through a channel bank. ``spans``: the
+    ``utils.logging.SpanRecorder`` of ``--trace-spans`` (phases
+    ``read_wait``, ``submit`` with ``upload`` / ``dispatch`` / ``fetch``,
+    ``drain`` with ``drain_wait`` and the summed ``write`` / ``rds`` times;
+    ``in_flight``; counters ``segments``, ``blocks``, ``rds_feeds``)."""
     from real_time_sdr_tpu_torch.models.rds_framing import RdsFramer
     from real_time_sdr_tpu_torch.models.wideband_frontend import (
         FusedWidebandFrontend, make_wideband_frontend)
@@ -441,24 +463,49 @@ def run_wideband(args, torch, device, rx, cfg) -> int:
         outs = [files.enter_context(
             open(os.path.join(outdir, f"station_{k}.pcm"), "wb"))
             for k in range(n_st)]
-        # (host tensors, event, blocks) per segment in flight; the device
-        # runs the segments in order, so they complete in order
+        # (host tensors, event, blocks, in_flight span) per segment in
+        # flight; the device runs the segments in order, so they complete
+        # in order
         in_flight: deque = deque()
+        now = time.perf_counter_ns
 
         def drain(k: int) -> None:
+            # one profiler range over the call, one drain span a segment
+            rng = spans.live and spans.profile_range("drain")
             for _ in range(k):
-                (pcm, nbits, bits), ev, g = in_flight.popleft()
+                (pcm, nbits, bits), ev, g, fl = in_flight.popleft()
+                dr = fl and spans.phase("drain", fl.gid, profile=False)
+                if fl:
+                    spans.end(fl)
+                dw = dr and spans.span("drain_wait", dr)
                 if ev is not None:
                     ev.synchronize()   # the only wait on the device
+                if dw:
+                    spans.end(dw)
                 pcm = pcm.numpy()
                 if framers is not None:
                     nbits, bits = nbits.numpy(), bits.numpy()
+                w_ns = r_ns = 0
                 for st in range(n_st):
+                    t = dr and now()
                     pcm[st].tofile(outs[st])
+                    if dr:
+                        t1 = now()
+                        w_ns += t1 - t
                     if framers is not None:
                         for j in range(g):
                             if nbits[st, j] > 0:
                                 framers[st].feed(bits[st, j, :nbits[st, j]])
+                        if dr:
+                            r_ns += now() - t1
+                if dr:
+                    spans.add(dr, "write", w_ns)
+                    if framers is not None:
+                        spans.add(dr, "rds", r_ns)
+                        spans.count("rds_feeds", int((nbits > 0).sum()))
+                    spans.end(dr)
+            if rng:
+                spans.close_range(rng)
 
         buf = bytearray(seg_n * block_bytes)
         seg_i = 0
@@ -482,15 +529,27 @@ def run_wideband(args, torch, device, rx, cfg) -> int:
                 if want <= 0:
                     break
             view = memoryview(buf)[:want * block_bytes]
+            rw = spans.live and spans.phase("read_wait", seg_i)
             g = _read_into(fin, view) // block_bytes
+            if rw:
+                spans.end(rw)
             if not g:
                 break
             t0 = time.perf_counter()
+            sub = spans.live and spans.phase("submit", seg_i)
             # an EOF partial segment runs at its exact shape (the real
             # blocks' outputs do not depend on padding): a graph of its own
             raw = np.frombuffer(buf, dtype=np.uint8, count=g * block_bytes)
+            sp = sub and spans.span("upload", sub)
+            x = upload(raw)
+            if sp:
+                spans.end(sp)
+                sp = spans.span("dispatch", sub)
             bstate, out, fstate = bank.run_wideband_u8_jit(
-                bstate, fe, upload(raw), fstate)
+                bstate, fe, x, fstate)
+            if sp:
+                spans.end(sp)
+                sp = spans.span("fetch", sub)
             seg_i += 1
             nbits = bits = None
             if framers is not None:
@@ -498,7 +557,15 @@ def run_wideband(args, torch, device, rx, cfg) -> int:
                 bits = out.rds_bits.reshape(n_st, g, -1)
             # ONE batched (S, ...) PCM tensor and one fetch per segment
             host, ev = _fetch(torch, device, [pcm_of(out), nbits, bits])
-            in_flight.append((host, ev, g))
+            fl = None
+            if sp:
+                spans.end(sp)
+                fl = spans.flight("in_flight", sub)
+                spans.count("segments")
+                spans.count("blocks", g)
+            if sub:
+                spans.end(sub)
+            in_flight.append((host, ev, g, fl))
             if len(in_flight) > args.pipeline:
                 drain(max(1, (len(in_flight) + 1) // 2))
             n_blocks += g
@@ -594,7 +661,13 @@ def _resume_wideband(args, fe, fused, offsets, framers, new_framer):
     return framers, True
 
 
-def _serve(args, torch, device, rx) -> int:
+def _serve(args, torch, device, rx, spans) -> int:
+    """Single-station mode: one tuner's blocks through the receiver, PCM
+    out through the native ring writer. ``spans``: the
+    ``utils.logging.SpanRecorder`` of ``--trace-spans``, with the
+    wideband loop's phases and spans (``upload`` here stages ``[tail |
+    group]`` as well; ``write`` / ``rds`` are ``writer.write`` and
+    ``framer.feed``) and counters ``groups``, ``blocks``, ``rds_feeds``."""
     from real_time_sdr_tpu_torch.models.rds_framing import RdsFramer
     from real_time_sdr_tpu_torch.utils import state as state_util
     from real_time_sdr_tpu_torch.utils.audio import mono_pcm, stereo_pcm
@@ -713,24 +786,42 @@ def _serve(args, torch, device, rx) -> int:
     n_blocks = 0
     t_total = 0.0
     latencies: list[float] = []
-    # (host tensors, event, ingest time, blocks) per group in flight; the
-    # device runs the groups in order, so they complete in order
+    # (host tensors, event, ingest time, blocks, in_flight span) per group
+    # in flight; the device runs the groups in order, so they complete in
+    # order
     in_flight: deque = deque()
+    now = time.perf_counter_ns
+    n_groups = 0
 
     def drain(k: int) -> None:
         nonlocal n_blocks
+        rng = spans.live and spans.profile_range("drain")
         for _ in range(k):
-            (pcm, nbits, bits, clean), ev, t_in, g = in_flight.popleft()
+            (pcm, nbits, bits, clean), ev, t_in, g, fl = in_flight.popleft()
+            dr = fl and spans.phase("drain", fl.gid, profile=False)
+            if fl:
+                spans.end(fl)
+            dw = dr and spans.span("drain_wait", dr)
             if ev is not None:
                 ev.synchronize()   # the only wait on the device
+            if dw:
+                spans.end(dw)
             pcm = pcm.numpy()
             step_len = pcm.shape[0] // g
             for j in range(g):
+                t = dr and now()
                 writer.write(pcm[j * step_len:(j + 1) * step_len])
+                if dr:
+                    t1 = now()
+                    spans.add(dr, "write", t1 - t)
                 if framer is not None:
                     nj = int(nbits[j])
                     if nj > 0:
                         framer.feed(bits[j, :nj].numpy())
+                        if dr:
+                            spans.count("rds_feeds")
+                    if dr:
+                        spans.add(dr, "rds", now() - t1)
                 n_blocks += 1
                 if args.monitor and n_blocks % monitor_every == 0:
                     _monitor_snapshot(
@@ -738,16 +829,31 @@ def _serve(args, torch, device, rx) -> int:
                         pcm[j * step_len:(j + 1) * step_len],
                         None if clean is None else clean[j].numpy())
             latencies.append(time.perf_counter() - t_in)
+            if dr:
+                spans.end(dr)
+        if rng:
+            spans.close_range(rng)
 
+    rw = spans.live and spans.phase("read_wait", 0)
     nxt = read_group()
+    if rw:
+        spans.end(rw)
     while nxt is not None:
         t0 = time.perf_counter()
         seg, t_in, g = nxt
+        sub = spans.live and spans.phase("submit", n_groups)
         # an EOF partial group runs at its exact shape (the real blocks'
         # outputs do not depend on padding): a graph of its own
+        sp = sub and spans.span("upload", sub)
         x = upload(seg)[None]
+        if sp:
+            spans.end(sp)
+            sp = spans.span("dispatch", sub)
         state, out = (rx.jit_run_segment_staged(state, x, seg.shape[0])
                       if upload.staged else rx.jit_step(state, x))
+        if sp:
+            spans.end(sp)
+            sp = spans.span("fetch", sub)
         pcm = pcm_of(out)
         nbits = bits = clean = None
         if framer is not None:
@@ -759,13 +865,25 @@ def _serve(args, torch, device, rx) -> int:
                                     for j in range(g)):
                 clean = out.rds_clean[0].reshape(g, -1)
         host, ev = _fetch(torch, device, [pcm, nbits, bits, clean])
+        fl = None
+        if sp:
+            spans.end(sp)
+            fl = spans.flight("in_flight", sub)
+            spans.count("groups")
+            spans.count("blocks", g)
+        if sub:
+            spans.end(sub)
         n_disp += g
-        in_flight.append((host, ev, t_in, g))
+        n_groups += 1
+        in_flight.append((host, ev, t_in, g, fl))
+        rw = spans.live and spans.phase("read_wait", n_groups)
         r0 = time.perf_counter()
         nxt = read_group()
         # blocked on the SOURCE, not processing: a paced live source
         # delivers a g-block group in g*30.6 ms
         read_wait = time.perf_counter() - r0
+        if rw:
+            spans.end(rw)
         if len(in_flight) > args.pipeline:
             # drain half the window per wait: the queue stays half full,
             # so the device keeps running while the host writes

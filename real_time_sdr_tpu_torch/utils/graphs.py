@@ -269,11 +269,13 @@ class GraphCache:
     ``graph_cls``: None captures ``CudaGraph``s of card tensors and runs
     CPU tensors eagerly; ``HostGraph`` runs the bookkeeping anywhere. A
     deep copy (a receiver's replica on another device) starts empty: each
-    replica holds its own graphs."""
+    replica holds its own graphs. ``spans``: a ``utils.logging.SpanRecorder``
+    that counts each capture as ``graph_captures`` (None: not counted)."""
 
     def __init__(self, graph_cls=None):
         self.graph_cls = graph_cls
         self._entries: dict = {}
+        self.spans = None
 
     def __deepcopy__(self, memo):
         return GraphCache(self.graph_cls)
@@ -301,4 +303,6 @@ class GraphCache:
         if entry is None:
             entry = _Entry(str(key[0]), fn, spec, leaves, device, graph_cls)
             self._entries[full] = entry
+            if self.spans is not None:
+                self.spans.count("graph_captures")
         return entry(leaves)

@@ -1,31 +1,40 @@
-"""Observability: gnuplot-style vector dumps, per-block timing against the
-real-time budget, the per-stage speed-of-light (roofline) report and a
+"""Observability: gnuplot-style vector dumps, the serving loops' span and
+counter recorder, the per-stage speed-of-light (roofline) report and a
 device trace.
 
-Port of ``real_time_sdr_tpu/utils/logging.py``. ``log_vector`` and
-``BlockTimer`` write and print what the JAX package's do. The roofline
-counts the FUNCTION's work, from the ``cost()`` of each module (``ops/fir``,
-``models/frontend``, ``ops/sync``), against the data-sheet peaks of an
-NVIDIA H100 SXM (80 GB HBM3, 700 W): the same count the kernel checks of
-``chip_smoke.py`` hold each kernel's time against.
+Port of ``real_time_sdr_tpu/utils/logging.py``. ``log_vector`` writes what
+the JAX package's does. ``SpanRecorder`` is the port's own: the CLI's two
+serving loops (``cli.run_wideband``, ``cli._serve``) record their phases
+(the read wait, the submit, the drain), the steps inside them and each
+segment's wait in flight, with counters beside them, and ``--trace-spans``
+writes them out at exit as a Chrome trace on torch.profiler's clock; while
+a profiler records, each phase is also one of its ranges. The roofline
+counts the FUNCTION's work, from the ``cost()`` of each module
+(``ops/fir``, ``models/frontend``, ``ops/sync``), against the data-sheet
+peaks of an NVIDIA H100 SXM (80 GB HBM3, 700 W): the same count the kernel
+checks of ``chip_smoke.py`` hold each kernel's time against.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 from torch.profiler import ProfilerActivity, profile, schedule
 
 from real_time_sdr_tpu_torch.ops.fir import DecimatingFIR
 from real_time_sdr_tpu_torch.ops.sync import FeedforwardSync
 
-__all__ = ["log_vector", "BlockTimer", "H100_HBM_BPS", "H100_F32_FLOPS",
-           "H100_BF16_FLOPS", "F32_LATENCY_CYCLES", "peak_flops",
+__all__ = ["log_vector", "Span", "SpanRecorder", "H100_HBM_BPS",
+           "H100_F32_FLOPS", "H100_BF16_FLOPS", "F32_LATENCY_CYCLES",
+           "peak_flops",
            "roofline_ms", "launch_cost", "stage_costs",
            "speed_of_light_report", "device_trace", "device_busy"]
 
@@ -56,32 +65,211 @@ def log_vector(name: str, data, out_dir: str = "data",
     return path
 
 
-class BlockTimer:
-    """Tracks per-block wall clock against the real-time budget."""
+class Span:
+    """One interval of a ``SpanRecorder``: its name, kind (``phase``,
+    ``span`` or ``flight``), the segment or group id it belongs to
+    (``gid``), the span that caused it (``parent``), its start and end
+    (``time.perf_counter_ns``), the thread (``threading.get_ident``: the
+    native id costs a system call), whether a torch.profiler session was
+    recording in the thread when it started (``profiled``), and the times
+    ``SpanRecorder.add`` summed onto it (``args``, ns)."""
 
-    def __init__(self, budget_s: float):
-        self.budget = budget_s
-        self.times: list[float] = []
+    __slots__ = ("name", "kind", "gid", "parent", "profiled", "rf", "tid",
+                 "args", "t0", "t1")
 
-    @contextlib.contextmanager
-    def block(self):
-        t0 = time.perf_counter()
-        yield
-        self.times.append(time.perf_counter() - t0)
+    def __init__(self, name: str, kind: str, gid, parent, profiled: bool,
+                 rf, t0: int):
+        self.name, self.kind, self.gid, self.parent = name, kind, gid, parent
+        self.profiled, self.rf, self.t0 = profiled, rf, t0
+        self.tid = threading.get_ident()
+        self.args: dict | None = None
+        self.t1: int | None = None
+
+
+def _enter_range(name: str):
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
+def _clock_pair() -> tuple[int, int]:
+    """(``perf_counter_ns``, ``time_ns``) read together: of five tries,
+    the one whose two ``perf_counter_ns`` reads around ``time_ns`` lie
+    closest, at their midpoint."""
+    best = None
+    for _ in range(5):
+        a = time.perf_counter_ns()
+        u = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, (a + b) // 2, u)
+    return best[1], best[2]
+
+
+class SpanRecorder:
+    """Spans and counters of a serving loop, kept in memory and written
+    out at the end as one Chrome-trace JSON on torch.profiler's clock
+    (``write``).
+
+    Kinds of span: a ``phase`` is a step of the loop's top level (in one
+    thread no two overlap); while a torch.profiler session records in the
+    thread, a phase is also a profiler range (``record_function``), which
+    the profiler stamps on its own clock: the span's start is taken just
+    after the range opens, its end just after the range closes, where the
+    profiler's own stamps lie nearest. A ``span`` is a step inside a phase
+    (memory only). A ``flight`` is a wait that overlaps the phases, such
+    as a segment's time in flight (memory only: as a profiler range it
+    would cover every idle gap). ``add`` sums time onto a span from many
+    short calls inside it. ``profile_range`` opens a profiler range alone,
+    for consecutive phases that share one (a drain of several segments).
+    A counter is a name and a running total, sampled at each ``count``.
+
+    Recording (``on``, set by ``start``) is off by default. The profiler
+    ranges do not wait for it: ``live`` is true while recording or while a
+    torch.profiler session runs in the process, so a profiled run names
+    its host phases with or without recording. A phase site tests ``live``
+    first (``sp = rec.live and rec.phase(...)``, then ``if sp:
+    rec.end(sp)``); with neither, that test is all a site costs, and no
+    profiler call is made. ``span``, ``flight`` and ``count`` do nothing
+    unless recording. Times are ``time.perf_counter_ns``, the clock of the
+    CLI's ``--stats`` lines; ``write`` maps them onto ``time.time_ns``
+    (the clock of a torch.profiler Chrome trace's ``ts`` plus its
+    ``baseTimeNanoseconds``) through two anchors, taken at ``start`` and
+    at ``write``."""
+
+    def __init__(self):
+        self.on = False
+        self.spans: list[Span] = []
+        self.counters: dict[str, int] = {}
+        self.samples: list[tuple[str, int, int]] = []
+        self.anchor: tuple[int, int] | None = None
+
+    def start(self) -> None:
+        """Turn recording on, from empty. Opens and closes one profiler
+        range first: a process's first range takes ~1 ms to resolve the
+        profiler's operators, which would stamp it far from its span."""
+        self.spans, self.counters, self.samples = [], {}, []
+        with torch.profiler.record_function("SpanRecorder.start"):
+            pass
+        self.anchor = _clock_pair()
+        self.on = True
 
     @property
-    def realtime_factor(self) -> float:
-        tot = sum(self.times)
-        return (self.budget * len(self.times) / tot) if tot else float("inf")
+    def live(self) -> bool:
+        """Recording, or a torch.profiler session recording in this
+        process (the profiler's own flag for such checks)."""
+        return self.on or _autograd_profiler._is_profiler_enabled
 
-    def summary(self) -> str:
-        if not self.times:
-            return "no blocks timed"
-        arr = np.array(self.times)
-        return (f"{len(arr)} blocks: mean {arr.mean()*1e3:.2f} ms, "
-                f"p99 {np.quantile(arr, 0.99)*1e3:.2f} ms, budget "
-                f"{self.budget*1e3:.2f} ms, {self.realtime_factor:.1f}x "
-                f"real time")
+    def _open(self, name: str, kind: str, gid, parent,
+              profile: bool) -> Span:
+        profiled = torch.autograd._profiler_enabled()
+        rf = _enter_range(name) if profiled and profile else None
+        sp = Span(name, kind, gid, parent, profiled, rf,
+                  time.perf_counter_ns())
+        if self.on:
+            self.spans.append(sp)
+        return sp
+
+    def phase(self, name: str, gid=None, profile: bool = True) -> Span:
+        """Open a top-level step of segment or group ``gid``; with
+        ``profile`` False it sends no range of its own to the profiler.
+        Kept only while recording."""
+        return self._open(name, "phase", gid, None, profile)
+
+    def span(self, name: str, parent: Span) -> Span | None:
+        """Open a step inside ``parent`` (memory only; None unless
+        recording)."""
+        return (self._open(name, "span", parent.gid, parent, False)
+                if self.on else None)
+
+    def flight(self, name: str, parent: Span) -> Span | None:
+        """Open a wait of ``parent``'s segment that overlaps the phases
+        (memory only; None unless recording)."""
+        return (self._open(name, "flight", parent.gid, parent, False)
+                if self.on else None)
+
+    def end(self, sp: Span) -> None:
+        if sp.rf is not None:
+            self.close_range(sp.rf)
+            sp.rf = None
+        sp.t1 = time.perf_counter_ns()
+
+    @staticmethod
+    def add(sp: Span, key: str, ns: int) -> None:
+        """Sum ``ns`` nanoseconds onto ``sp`` under ``key``."""
+        if sp.args is None:
+            sp.args = {}
+        sp.args[key] = sp.args.get(key, 0) + ns
+
+    @staticmethod
+    def profile_range(name: str):
+        """An entered ``record_function(name)`` while a profiler records
+        in this thread, else None."""
+        return (_enter_range(name) if torch.autograd._profiler_enabled()
+                else None)
+
+    @staticmethod
+    def close_range(rf) -> None:
+        if rf is not None:
+            rf.__exit__(None, None, None)
+
+    def count(self, name: str, n: int = 1) -> None:
+        if not self.on:
+            return
+        total = self.counters.get(name, 0) + n
+        self.counters[name] = total
+        self.samples.append((name, time.perf_counter_ns(), total))
+
+    def write(self, path: str) -> None:
+        """The spans and counters as a Chrome-trace JSON: phases and spans
+        as complete events (``X``; ``cat`` their kind), flights as async
+        begin/end pairs (``b``/``e``), counter samples as ``C`` events;
+        ``args`` carry ``span`` (the span's index), ``parent`` (its
+        parent's), ``id`` (segment or group), ``profiled`` and any summed
+        times in ms (``<key>_ms``). ``ts`` is in microseconds from
+        ``baseTimeNanoseconds`` on ``time.time_ns``'s clock, as in a
+        torch.profiler export; ``otherData`` holds the counters' totals
+        and the anchors."""
+        end = _clock_pair()
+        (p0, u0), (p1, u1) = self.anchor, end
+        rate = (u1 - u0) / (p1 - p0) if p1 > p0 else 1.0
+        base = u0 // 10**9 * 10**9
+        pid = os.getpid()
+        native = {t.ident: t.native_id for t in threading.enumerate()}
+
+        def ts(t: int) -> float:
+            return ((u0 - base) + (t - p0) * rate) / 1e3
+
+        index = {id(sp): k for k, sp in enumerate(self.spans)}
+        events = []
+        for k, sp in enumerate(self.spans):
+            if sp.t1 is None:
+                continue
+            args = {"span": k, "parent": index.get(id(sp.parent)),
+                    "id": sp.gid, "profiled": sp.profiled}
+            for key, ns in (sp.args or {}).items():
+                args[key + "_ms"] = ns / 1e6
+            head = {"cat": sp.kind, "name": sp.name, "pid": pid,
+                    "tid": native.get(sp.tid, sp.tid)}
+            if sp.kind == "flight":
+                events.append(dict(head, ph="b", id=k, ts=ts(sp.t0),
+                                   args=args))
+                events.append(dict(head, ph="e", id=k, ts=ts(sp.t1)))
+            else:
+                events.append(dict(head, ph="X", ts=ts(sp.t0),
+                                   dur=(sp.t1 - sp.t0) * rate / 1e3,
+                                   args=args))
+        tid = threading.get_native_id()
+        for name, t, total in self.samples:
+            events.append({"ph": "C", "cat": "counter", "name": name,
+                           "pid": pid, "tid": tid, "ts": ts(t),
+                           "args": {name: total}})
+        doc = {"traceEvents": events, "displayTimeUnit": "ms",
+               "baseTimeNanoseconds": base,
+               "otherData": {"counters": dict(self.counters),
+                             "anchors": [list(self.anchor), list(end)]}}
+        with open(path, "w") as f:
+            json.dump(doc, f)
 
 
 def peak_flops(kind: str = "") -> tuple[float, str]:

@@ -207,9 +207,10 @@ def test_cli_bad_arguments_exit_2(args, tmp_path, capsys):
 
 
 def test_cli_parser_matches_jax_surface(jcli):
-    """Same positionals, flags, defaults and choices as the JAX CLI, and one
-    flag of the port's own: ``--wb-fir``, the counterpart of the JAX
-    package's RTSDR_WB_FIR / RTSDR_CHAN_FIR environment variables."""
+    """Same positionals, flags, defaults and choices as the JAX CLI, and two
+    flags of the port's own: ``--wb-fir``, the counterpart of the JAX
+    package's RTSDR_WB_FIR / RTSDR_CHAN_FIR environment variables, and
+    ``--trace-spans`` (the serving loops' span recorder)."""
     def surface(ap):
         return {a.dest: (tuple(a.option_strings), a.default,
                          None if a.choices is None else tuple(a.choices),
@@ -217,6 +218,7 @@ def test_cli_parser_matches_jax_surface(jcli):
     mine = surface(cli.make_parser())
     assert mine.pop("wb_fir") == (("--wb-fir",), None,
                                   ("f32", "bf16", "bf16x2"), None)
+    assert mine.pop("trace_spans") == (("--trace-spans",), None, None, None)
     assert mine == surface(jcli.make_parser())
     with pytest.raises(SystemExit) as e:
         cli.make_parser().parse_args(["7"])
