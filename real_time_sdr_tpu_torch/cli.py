@@ -25,8 +25,13 @@ group's shape (the first group of a shape, and an EOF partial group,
 capture one; on the CPU the eager receiver runs), and starts the PCM and
 RDS copies back into pinned memory. Up to ``--pipeline`` groups stay in flight; a
 drain waits once per group on a CUDA event, then writes the PCM and feeds
-the RDS framer. The wideband loop is the same with one (S, ...) PCM tensor
-and one fetch per segment, served by ``ChannelBank.run_wideband_u8_jit``; ``--retune SEG:STATION:HZ`` re-points a station
+the RDS framer. The wideband loop does the same with one (S, ...) PCM
+tensor and one fetch per segment, served by
+``ChannelBank.run_wideband_u8_jit``, and hands each fetch to a drain
+thread that waits on the segment's event and drains it as soon as the
+device is done, not when later input arrives; there ``--pipeline`` bounds
+the segments submitted and not yet drained (0: each segment is drained
+before the next read). ``--retune SEG:STATION:HZ`` re-points a station
 of the fused frontend between segments, ``--checkpoint`` resumes onto the
 grid the saved state was built on (its ``.rds.json`` sidecar names it),
 and ``--wb-fir {f32,bf16,bf16x2}`` sets the wideband frontend's precision
@@ -42,6 +47,7 @@ import os
 import sys
 import time
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -104,7 +110,12 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--pipeline", type=int, default=1,
                     help="groups kept in flight on the device before the "
                          "PCM fetch syncs; each adds latency but overlaps "
-                         "host work with the device (0 = fully synchronous)")
+                         "host work with the device. With --stations: the "
+                         "most segments submitted and not yet drained by "
+                         "the drain thread, which drains each as soon as "
+                         "the device has finished it; the next upload "
+                         "waits at this bound (0 = fully synchronous: "
+                         "each group is drained before the next read)")
     ap.add_argument("--segment", type=int, default=1, metavar="G",
                     help="aggregate G input blocks per receiver call "
                          "(segment serving): amortizes per-call launch and "
@@ -211,11 +222,14 @@ class _Uploader:
     (``Frontend.stage_segment``) for ``Receiver.run_segment_staged``, and
     ``tail`` moves on to the group's last ``tail_len`` bytes; without one
     (the wideband path) it receives the group as it is. A slot is reused
-    ``slots`` groups later; the loop drains every group more than
-    ``--pipeline`` groups old (waiting on its event, which follows its
-    upload), so with ``slots`` >= ``--pipeline`` + 2 no slot is overwritten
-    while its copy is in flight. Unstaged: a plain pageable
-    ``.to(device)`` of the group."""
+    ``slots`` groups later. A group is drained only after its event, which
+    follows its upload, completes: the single-station loop drains every
+    group more than ``--pipeline`` groups old, and the wideband loop
+    uploads a segment only while fewer than ``--pipeline`` (at 0: none)
+    are submitted and not yet released by its drain worker. So with
+    ``slots`` >= ``--pipeline`` + 2 no slot is overwritten while its copy
+    is in flight. Unstaged: a plain pageable ``.to(device)`` of the
+    group."""
 
     def __init__(self, torch, device, nbytes: int, slots: int, staged: bool,
                  frontend=None):
@@ -263,6 +277,54 @@ def _fetch(torch, device, tensors):
     ev = torch.cuda.Event()
     ev.record()
     return host, ev
+
+
+class _DrainWorker:
+    """The wideband loop's drain on a thread of its own (a one-thread
+    executor): ``drain_one`` runs on each ``submit``ted segment in that
+    order, as soon as it is submitted (it waits on the segment's event:
+    on a card ``Event.synchronize``, which releases the GIL). A segment
+    is released when its drain returns. ``wait(n)`` blocks until at most
+    ``n`` submitted segments are unreleased; it, ``pending`` and
+    ``take_ns`` raise a drain's exception again in the serving thread.
+    ``take_ns`` hands over the time the released drains took, their
+    waits on the device included, for the ``--stats`` lines."""
+
+    def __init__(self, drain_one):
+        self._drain_one = drain_one
+        self._pool = ThreadPoolExecutor(1, thread_name_prefix="drain")
+        self._futs: deque = deque()
+        self.submitted = self.released = 0
+        self._ns = 0
+
+    def _timed(self, item) -> int:
+        t = time.perf_counter_ns()
+        self._drain_one(item)
+        return time.perf_counter_ns() - t
+
+    def submit(self, item) -> None:
+        self._futs.append(self._pool.submit(self._timed, item))
+        self.submitted += 1
+
+    def wait(self, n: int) -> None:
+        while self._futs and (len(self._futs) > n or self._futs[0].done()):
+            self._ns += self._futs.popleft().result()
+            self.released += 1
+
+    def pending(self) -> int:
+        """Segments submitted and not yet released."""
+        self.wait(len(self._futs))
+        return len(self._futs)
+
+    def take_ns(self) -> int:
+        self.pending()
+        ns, self._ns = self._ns, 0
+        return ns
+
+    def close(self) -> None:
+        """Drop what is queued, and join the worker after the drain it is
+        in (after a ``wait(0)``, nothing is queued)."""
+        self._pool.shutdown(cancel_futures=True)
 
 
 def _native_io():
@@ -347,11 +409,31 @@ def _read_into(fin, view) -> int:
 
 def run_wideband(args, torch, device, rx, cfg, spans) -> int:
     """Multi-station mode: channelize a wideband capture and decode every
-    station in parallel through a channel bank. ``spans``: the
-    ``utils.logging.SpanRecorder`` of ``--trace-spans`` (phases
-    ``read_wait``, ``submit`` with ``upload`` / ``dispatch`` / ``fetch``,
-    ``drain`` with ``drain_wait`` and the summed ``write`` / ``rds`` times;
-    ``in_flight``; counters ``segments``, ``blocks``, ``rds_feeds``)."""
+    station in parallel through a channel bank.
+
+    The serving thread reads, uploads, dispatches and fetches each
+    segment and hands the fetch to a ``_DrainWorker``, whose thread waits
+    on the segment's event and then, station by station, writes its PCM
+    and feeds its RDS bits to its framer. At most ``--pipeline`` segments
+    are submitted and not yet drained: the serving thread waits before an
+    upload that would pass that bound, and at ``--pipeline 0`` it waits
+    for each segment's drain before the next read. A ``--retune``, EOF and
+    ``--max-blocks`` wait for every drain. A ``--stats`` line, printed by
+    the serving thread, is the segment's submit (its waits on the worker
+    left out) plus the time of the drains released since the line before,
+    their waits on the segments' events included, as before the worker:
+    at ``--pipeline 0``, or unpaced, those waits hold the device's time,
+    and ``total:`` reads no faster than the device runs.
+
+    ``spans``: the ``utils.logging.SpanRecorder`` of ``--trace-spans``
+    (serving thread: phases ``read_wait`` and ``submit`` with
+    ``backpressure_wait`` / ``upload`` / ``dispatch`` / ``fetch``; worker
+    thread: ``drain`` with ``drain_wait`` and the summed ``write`` /
+    ``rds`` times; ``in_flight`` from a segment's fetch to its drain;
+    counters ``segments``, ``blocks``, ``rds_feeds``,
+    ``drained_before_next_read``, a segment drained before the serving
+    thread finished reading the next one, and ``drain_backpressure``, an
+    upload that waited on the worker)."""
     from real_time_sdr_tpu_torch.models.rds_framing import RdsFramer
     from real_time_sdr_tpu_torch.models.wideband_frontend import (
         FusedWidebandFrontend, make_wideband_frontend)
@@ -408,9 +490,10 @@ def run_wideband(args, torch, device, rx, cfg, spans) -> int:
     bank = ChannelBank(rx, n_st)
 
     def new_framer(k: int):
-        return RdsFramer(on_event=lambda kind, val: print(
-            f"ch{k} {kind}: {val}", file=sys.stderr),
-            correct_bursts=args.rds_correct)
+        # one write a line: the drain thread's lines and the serving
+        # thread's --stats lines never split each other
+        return RdsFramer(on_event=lambda kind, val: sys.stderr.write(
+            f"ch{k} {kind}: {val}\n"), correct_bursts=args.rds_correct)
 
     framers = [new_framer(k) for k in range(n_st)] if rx.rds else None
     block_pairs = cfg.block_size_iq * fe.decim
@@ -463,57 +546,57 @@ def run_wideband(args, torch, device, rx, cfg, spans) -> int:
         outs = [files.enter_context(
             open(os.path.join(outdir, f"station_{k}.pcm"), "wb"))
             for k in range(n_st)]
-        # (host tensors, event, blocks, in_flight span) per segment in
-        # flight; the device runs the segments in order, so they complete
-        # in order
-        in_flight: deque = deque()
         now = time.perf_counter_ns
 
-        def drain(k: int) -> None:
-            # one profiler range over the call, one drain span a segment
-            rng = spans.live and spans.profile_range("drain")
-            for _ in range(k):
-                (pcm, nbits, bits), ev, g, fl = in_flight.popleft()
-                dr = fl and spans.phase("drain", fl.gid, profile=False)
-                if fl:
-                    spans.end(fl)
-                dw = dr and spans.span("drain_wait", dr)
-                if ev is not None:
-                    ev.synchronize()   # the only wait on the device
-                if dw:
-                    spans.end(dw)
-                pcm = pcm.numpy()
-                if framers is not None:
-                    nbits, bits = nbits.numpy(), bits.numpy()
-                w_ns = r_ns = 0
-                for st in range(n_st):
-                    t = dr and now()
-                    pcm[st].tofile(outs[st])
-                    if dr:
-                        t1 = now()
-                        w_ns += t1 - t
-                    if framers is not None:
-                        for j in range(g):
-                            if nbits[st, j] > 0:
-                                framers[st].feed(bits[st, j, :nbits[st, j]])
-                        if dr:
-                            r_ns += now() - t1
+        def drain_one(item) -> None:
+            # in the worker's thread: one drain phase (and profiler range)
+            # a segment, from the start of its wait on the device
+            (pcm, nbits, bits), ev, g, fl, gid = item
+            dr = spans.live and spans.phase("drain", gid)
+            if fl:
+                spans.end(fl, dr.t0)
+            dw = dr and spans.span("drain_wait", dr)
+            if ev is not None:
+                ev.synchronize()   # the only wait on the device
+            if dw:
+                spans.end(dw)
+            pcm = pcm.numpy()
+            if framers is not None:
+                nbits, bits = nbits.numpy(), bits.numpy()
+            w_ns = r_ns = 0
+            for st in range(n_st):
+                t = dr and now()
+                pcm[st].tofile(outs[st])
                 if dr:
-                    spans.add(dr, "write", w_ns)
-                    if framers is not None:
-                        spans.add(dr, "rds", r_ns)
-                        spans.count("rds_feeds", int((nbits > 0).sum()))
-                    spans.end(dr)
-            if rng:
-                spans.close_range(rng)
+                    t1 = now()
+                    w_ns += t1 - t
+                if framers is not None:
+                    for j in range(g):
+                        if nbits[st, j] > 0:
+                            framers[st].feed(bits[st, j, :nbits[st, j]])
+                    if dr:
+                        r_ns += now() - t1
+            if dr:
+                spans.add(dr, "write", w_ns)
+                if framers is not None:
+                    spans.add(dr, "rds", r_ns)
+                    spans.count("rds_feeds", int((nbits > 0).sum()))
+                spans.end(dr)
 
+        # (host tensors, event, blocks, in_flight span, segment) per
+        # segment; the device runs the segments in order, so they complete
+        # in order. Closed before the files (the stack unwinds in reverse).
+        worker = _DrainWorker(drain_one)
+        files.callback(worker.close)
+        # uploads wait while this many segments are not yet drained
+        bound = max(args.pipeline, 1)
         buf = bytearray(seg_n * block_bytes)
         seg_i = 0
         while True:
             if seg_i in retunes:
                 # drain first: pending outputs belong to the old grid and
                 # must reach the old framers before the station re-points
-                drain(len(in_flight))
+                worker.wait(0)
                 for si, hz in retunes.pop(seg_i):
                     fe.retune(si, hz)
                     if framers is not None:
@@ -533,10 +616,22 @@ def run_wideband(args, torch, device, rx, cfg, spans) -> int:
             g = _read_into(fin, view) // block_bytes
             if rw:
                 spans.end(rw)
+                if seg_i and not worker.pending():
+                    spans.count("drained_before_next_read")
             if not g:
                 break
             t0 = time.perf_counter()
             sub = spans.live and spans.phase("submit", seg_i)
+            waited = 0.0
+            if worker.pending() >= bound:
+                # the upload ring's slot may still be in flight
+                spans.count("drain_backpressure")
+                sp = sub and spans.span("backpressure_wait", sub)
+                w0 = time.perf_counter()
+                worker.wait(bound - 1)
+                waited = time.perf_counter() - w0
+                if sp:
+                    spans.end(sp)
             # an EOF partial segment runs at its exact shape (the real
             # blocks' outputs do not depend on padding): a graph of its own
             raw = np.frombuffer(buf, dtype=np.uint8, count=g * block_bytes)
@@ -550,7 +645,6 @@ def run_wideband(args, torch, device, rx, cfg, spans) -> int:
             if sp:
                 spans.end(sp)
                 sp = spans.span("fetch", sub)
-            seg_i += 1
             nbits = bits = None
             if framers is not None:
                 nbits = out.rds_nbits.reshape(n_st, g)
@@ -560,21 +654,26 @@ def run_wideband(args, torch, device, rx, cfg, spans) -> int:
             fl = None
             if sp:
                 spans.end(sp)
-                fl = spans.flight("in_flight", sub)
+                fl = spans.flight("in_flight", sub, sp.t1)
                 spans.count("segments")
                 spans.count("blocks", g)
             if sub:
                 spans.end(sub)
-            in_flight.append((host, ev, g, fl))
-            if len(in_flight) > args.pipeline:
-                drain(max(1, (len(in_flight) + 1) // 2))
+            worker.submit((host, ev, g, fl, seg_i))
+            seg_i += 1
+            if not args.pipeline:
+                w0 = time.perf_counter()
+                worker.wait(0)
+                waited += time.perf_counter() - w0
             n_blocks += g
-            dt = time.perf_counter() - t0
+            dt = max(time.perf_counter() - t0 - waited
+                     + worker.take_ns() / 1e9, 1e-9)
             t_total += dt
             if args.stats:
-                print(f"block {n_blocks}: {dt*1e3:.2f} ms "
-                      f"({g*budget/dt:.1f}x real time)", file=sys.stderr)
-        drain(len(in_flight))
+                sys.stderr.write(f"block {n_blocks}: {dt*1e3:.2f} ms "
+                                 f"({g*budget/dt:.1f}x real time)\n")
+        worker.wait(0)
+        t_total += worker.take_ns() / 1e9
     if args.checkpoint:
         state_util.save_state(args.checkpoint, (fstate, bstate))
         # fe.offsets, not the parsed --stations list: --retune re-points

@@ -70,8 +70,9 @@ class Span:
     ``span`` or ``flight``), the segment or group id it belongs to
     (``gid``), the span that caused it (``parent``), its start and end
     (``time.perf_counter_ns``), the thread (``threading.get_ident``: the
-    native id costs a system call), whether a torch.profiler session was
-    recording in the thread when it started (``profiled``), and the times
+    native id costs a system call, taken once a thread by the recorder),
+    whether a torch.profiler session ran in the process when it started
+    (``profiled``: a phase's range went to it), and the times
     ``SpanRecorder.add`` summed onto it (``args``, ns)."""
 
     __slots__ = ("name", "kind", "gid", "parent", "profiled", "rf", "tid",
@@ -87,7 +88,12 @@ class Span:
 
 
 def _enter_range(name: str):
-    rf = torch.profiler.record_function(name)
+    """An entered profiler range (a ``cpu_op`` event named ``name``).
+    ``_RecordFunctionFast`` opens and closes it in C++ without releasing
+    the GIL, so no other thread runs between its stamp and the span's;
+    ``record_function`` goes through an operator that does release it,
+    and its stamps could lie a thread's turn (up to ~5 ms) off."""
+    rf = torch._C._profiler._RecordFunctionFast(name)
     rf.__enter__()
     return rf
 
@@ -113,9 +119,9 @@ class SpanRecorder:
 
     Kinds of span: a ``phase`` is a step of the loop's top level (in one
     thread no two overlap); while a torch.profiler session records in the
-    thread, a phase is also a profiler range (``record_function``), which
+    thread, a phase is also a profiler range (``_enter_range``), which
     the profiler stamps on its own clock: the span's start is taken just
-    after the range opens, its end just after the range closes, where the
+    after the range opens, its end just before it closes, where the
     profiler's own stamps lie nearest. A ``span`` is a step inside a phase
     (memory only). A ``flight`` is a wait that overlaps the phases, such
     as a segment's time in flight (memory only: as a profiler range it
@@ -123,11 +129,17 @@ class SpanRecorder:
     short calls inside it. ``profile_range`` opens a profiler range alone,
     for consecutive phases that share one (a drain of several segments).
     A counter is a name and a running total, sampled at each ``count``.
+    Spans and counters may come from several threads (the wideband loop's
+    drain runs in a worker); each span keeps its thread.
 
     Recording (``on``, set by ``start``) is off by default. The profiler
     ranges do not wait for it: ``live`` is true while recording or while a
     torch.profiler session runs in the process, so a profiled run names
-    its host phases with or without recording. A phase site tests ``live``
+    its host phases with or without recording. A range is opened in any
+    thread while a session runs; the session records it when it records
+    that thread: by default only the thread that started it, every thread
+    under ``experimental_config=_ExperimentalConfig(profile_all_threads=
+    True)``. A phase site tests ``live``
     first (``sp = rec.live and rec.phase(...)``, then ``if sp:
     rec.end(sp)``); with neither, that test is all a site costs, and no
     profiler call is made. ``span``, ``flight`` and ``count`` do nothing
@@ -143,14 +155,13 @@ class SpanRecorder:
         self.counters: dict[str, int] = {}
         self.samples: list[tuple[str, int, int]] = []
         self.anchor: tuple[int, int] | None = None
+        self.natives: dict[int, int] = {}
+        self._lock = threading.Lock()
 
     def start(self) -> None:
-        """Turn recording on, from empty. Opens and closes one profiler
-        range first: a process's first range takes ~1 ms to resolve the
-        profiler's operators, which would stamp it far from its span."""
+        """Turn recording on, from empty."""
         self.spans, self.counters, self.samples = [], {}, []
-        with torch.profiler.record_function("SpanRecorder.start"):
-            pass
+        self.natives = {}
         self.anchor = _clock_pair()
         self.on = True
 
@@ -162,12 +173,14 @@ class SpanRecorder:
 
     def _open(self, name: str, kind: str, gid, parent,
               profile: bool) -> Span:
-        profiled = torch.autograd._profiler_enabled()
+        profiled = _autograd_profiler._is_profiler_enabled
         rf = _enter_range(name) if profiled and profile else None
         sp = Span(name, kind, gid, parent, profiled, rf,
                   time.perf_counter_ns())
         if self.on:
             self.spans.append(sp)
+            if sp.tid not in self.natives:   # a system call, once a thread
+                self.natives[sp.tid] = threading.get_native_id()
         return sp
 
     def phase(self, name: str, gid=None, profile: bool = True) -> Span:
@@ -182,17 +195,26 @@ class SpanRecorder:
         return (self._open(name, "span", parent.gid, parent, False)
                 if self.on else None)
 
-    def flight(self, name: str, parent: Span) -> Span | None:
-        """Open a wait of ``parent``'s segment that overlaps the phases
-        (memory only; None unless recording)."""
-        return (self._open(name, "flight", parent.gid, parent, False)
-                if self.on else None)
+    def flight(self, name: str, parent: Span,
+               t0: int | None = None) -> Span | None:
+        """Open a wait of ``parent``'s segment that overlaps the phases,
+        from ``t0`` (``time.perf_counter_ns``; default now) (memory only;
+        None unless recording)."""
+        if not self.on:
+            return None
+        sp = self._open(name, "flight", parent.gid, parent, False)
+        if t0 is not None:
+            sp.t0 = t0
+        return sp
 
-    def end(self, sp: Span) -> None:
+    def end(self, sp: Span, t1: int | None = None) -> None:
+        """Close ``sp`` now, or at ``t1`` (``time.perf_counter_ns``): a
+        span that ends where another starts, in another thread, shares
+        its stamp."""
+        sp.t1 = time.perf_counter_ns() if t1 is None else t1
         if sp.rf is not None:
             self.close_range(sp.rf)
             sp.rf = None
-        sp.t1 = time.perf_counter_ns()
 
     @staticmethod
     def add(sp: Span, key: str, ns: int) -> None:
@@ -203,9 +225,9 @@ class SpanRecorder:
 
     @staticmethod
     def profile_range(name: str):
-        """An entered ``record_function(name)`` while a profiler records
-        in this thread, else None."""
-        return (_enter_range(name) if torch.autograd._profiler_enabled()
+        """An entered range ``name`` while a torch.profiler session runs,
+        else None."""
+        return (_enter_range(name) if _autograd_profiler._is_profiler_enabled
                 else None)
 
     @staticmethod
@@ -216,9 +238,10 @@ class SpanRecorder:
     def count(self, name: str, n: int = 1) -> None:
         if not self.on:
             return
-        total = self.counters.get(name, 0) + n
-        self.counters[name] = total
-        self.samples.append((name, time.perf_counter_ns(), total))
+        with self._lock:
+            total = self.counters.get(name, 0) + n
+            self.counters[name] = total
+            self.samples.append((name, time.perf_counter_ns(), total))
 
     def write(self, path: str) -> None:
         """The spans and counters as a Chrome-trace JSON: phases and spans
@@ -235,7 +258,6 @@ class SpanRecorder:
         rate = (u1 - u0) / (p1 - p0) if p1 > p0 else 1.0
         base = u0 // 10**9 * 10**9
         pid = os.getpid()
-        native = {t.ident: t.native_id for t in threading.enumerate()}
 
         def ts(t: int) -> float:
             return ((u0 - base) + (t - p0) * rate) / 1e3
@@ -250,7 +272,7 @@ class SpanRecorder:
             for key, ns in (sp.args or {}).items():
                 args[key + "_ms"] = ns / 1e6
             head = {"cat": sp.kind, "name": sp.name, "pid": pid,
-                    "tid": native.get(sp.tid, sp.tid)}
+                    "tid": self.natives.get(sp.tid, sp.tid)}
             if sp.kind == "flight":
                 events.append(dict(head, ph="b", id=k, ts=ts(sp.t0),
                                    args=args))

@@ -7,12 +7,15 @@ its ranges and nothing else is); a ``--trace-spans`` file of each loop
 (the wideband mode with 4 stations, the one-station mode at its
 defaults) holds the phases ``read_wait`` / ``submit`` / ``drain`` with
 their inner spans under the right parent and segment id, one
-``in_flight`` per segment from its fetch to its drain, no two phases of
-one thread overlapping, and the ``segments`` / ``groups`` and ``blocks``
-counters equal to what was served; ``graph_captures`` counts each new graph; under a torch.profiler
-session every phase lies within 0.25 ms of its profiler range on the
-profiler's own clock (a drain of several segments is one range from the
-first one's start to the last one's end).
+``in_flight`` per segment from its fetch to the start of its drain, no
+two phases of one thread overlapping, and the ``segments`` / ``groups``
+and ``blocks`` counters equal to what was served; the wideband loop's
+drains, one a segment, all run in one thread of their own (the drain
+worker), and its ``drain_backpressure`` counts its ``backpressure_wait``
+spans; ``graph_captures`` counts each new graph; under a torch.profiler
+session (for the wideband loop, one that records every thread) every
+phase lies within 0.25 ms of its own profiler range on the profiler's own
+clock, the wideband drains' in the worker's thread.
 """
 
 import contextlib
@@ -22,11 +25,13 @@ import json
 import numpy as np
 import pytest
 import torch
+from torch._C._profiler import _ExperimentalConfig
 from torch.profiler import ProfilerActivity, profile
 
 from real_time_sdr_tpu_torch import cli
 from real_time_sdr_tpu_torch.config import mode_config
 from real_time_sdr_tpu_torch.utils import graphs, synth
+from real_time_sdr_tpu_torch.utils import logging as span_log
 from real_time_sdr_tpu_torch.utils.logging import SpanRecorder
 
 CFG = mode_config(0)
@@ -64,6 +69,14 @@ def _argv(kind, d, extra=()):
             str(d / "wide.raw"), *extra]
 
 
+def _profile():
+    """A CPU torch.profiler session that records every thread: a default
+    one records only the thread that started it, not the drain worker."""
+    return profile(activities=[ProfilerActivity.CPU],
+                   experimental_config=_ExperimentalConfig(
+                       profile_all_threads=True))
+
+
 def _main(argv):
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
@@ -98,11 +111,12 @@ def _spans(events):
 @pytest.mark.parametrize("profiled", [False, True])
 def test_recorder_off_records_nothing(captures, monkeypatch, profiled):
     """Without ``--trace-spans`` the recorder keeps no span, counter or
-    file. With no profiler running no span site opens anything or calls
-    ``record_function``; under a profiler the phases are its ranges
-    (``read_wait``, ``submit``, ``drain``) and nothing else is made."""
+    file. With no profiler running no span site opens anything or a
+    profiler range; under a profiler the phases are its ranges
+    (``read_wait``, ``submit``, ``drain``: the drain worker's too) and
+    nothing else is made."""
     made, calls = [], []
-    real_init, real_rf = SpanRecorder.__init__, torch.profiler.record_function
+    real_init, real_rf = SpanRecorder.__init__, span_log._enter_range
 
     def init(self):
         real_init(self)
@@ -114,10 +128,9 @@ def test_recorder_off_records_nothing(captures, monkeypatch, profiled):
     monkeypatch.setattr(SpanRecorder, "write", refuse)
     if not profiled:
         monkeypatch.setattr(SpanRecorder, "_open", refuse)
-    monkeypatch.setattr(torch.profiler, "record_function",
+    monkeypatch.setattr(span_log, "_enter_range",
                         lambda *a, **k: calls.append(a) or real_rf(*a, **k))
-    with (profile(activities=[ProfilerActivity.CPU]) if profiled
-          else contextlib.nullcontext()) as prof:
+    with (_profile() if profiled else contextlib.nullcontext()) as prof:
         _main(_argv("wide", captures, ["--max-blocks", "4"]))
     (rec,) = made
     assert not rec.on and rec.spans == [] and rec.counters == {}
@@ -151,6 +164,8 @@ def test_trace_spans_file_of_each_loop(captures, kind, tmp_path):
     drains = {a["id"]: (t0, t1) for n, _, t0, t1, a in spans.values()
               if n == "drain"}
     assert sorted(drains) == sorted(submits)
+    # one drain a segment
+    assert sum(s[0] == "drain" for s in spans.values()) == len(submits)
     # at most one framer feed a station and block
     assert counters.get("rds_feeds", 0) <= blocks * (
         1 if kind == "one" else len(OFFSETS))
@@ -162,7 +177,8 @@ def test_trace_spans_file_of_each_loop(captures, kind, tmp_path):
         parent = spans[a["parent"]]
         assert parent[4]["id"] == a["id"]
         want = {"upload": "submit", "dispatch": "submit", "fetch": "submit",
-                "drain_wait": "drain", "in_flight": "submit"}[name]
+                "backpressure_wait": "submit", "drain_wait": "drain",
+                "in_flight": "submit"}[name]
         assert parent[0] == want, (name, parent[0])
         if kind_ == "span":
             assert parent[2] <= t0 and t1 <= parent[3]
@@ -170,17 +186,37 @@ def test_trace_spans_file_of_each_loop(captures, kind, tmp_path):
             assert kind_ == "flight" and name == "in_flight"
             fetch = [s for s in spans.values()
                      if s[0] == "fetch" and s[4]["parent"] == a["parent"]]
-            assert fetch[0][3] <= t0 <= fetch[0][3] + 100
-            assert t1 <= drains[a["id"]][0] + 100
+            if kind == "one":
+                assert fetch[0][3] <= t0 <= fetch[0][3] + 100
+                assert t1 <= drains[a["id"]][0] + 100
+            else:   # it shares the fetch's end stamp and the drain's start
+                # stamp (the fetch's end is written as ts + dur: 1 ns for
+                # the rounding)
+                assert abs(t0 - fetch[0][3]) < 1e-3
+                assert t1 == drains[a["id"]][0]
     assert sum(s[0] == "in_flight" for s in spans.values()) == len(submits)
     for a in (s[4] for s in spans.values() if s[0] == "drain"):
         assert a["write_ms"] >= 0 and a["rds_ms"] >= 0
-    phases = sorted((t0, t1, a["span"]) for n, c, t0, t1, a in
-                    spans.values() if c == "phase")
-    tids = {e["tid"] for e in events if e.get("cat") == "phase"}
-    assert len(tids) == 1
-    for (a0, a1, _), (b0, b1, _) in zip(phases, phases[1:]):
-        assert a1 <= b0, "two phases overlap"
+    assert counters.get("drain_backpressure", 0) == sum(
+        s[0] == "backpressure_wait" for s in spans.values())
+    assert counters.get("drained_before_next_read", 0) <= len(submits)
+    tid_of = {e["args"]["span"]: e["tid"] for e in events
+              if e.get("cat") == "phase"}
+    threads = {}
+    for k, s in spans.items():
+        if s[1] == "phase":
+            threads.setdefault(s[0], set()).add(tid_of[k])
+    if kind == "one":       # one thread
+        assert len(set().union(*threads.values())) == 1
+    else:                   # every drain in the worker's thread
+        assert len(threads["drain"]) == 1
+        assert threads["read_wait"] == threads["submit"]
+        assert threads["drain"] != threads["submit"]
+    for tid in set().union(*threads.values()):
+        phases = sorted((t0, t1) for k, (n, c, t0, t1, a) in spans.items()
+                        if c == "phase" and tid_of[k] == tid)
+        for (a0, a1), (b0, b1) in zip(phases, phases[1:]):
+            assert a1 <= b0, "two phases of one thread overlap"
 
 
 def test_graph_captures_are_counted(captures, monkeypatch, tmp_path):
@@ -210,25 +246,34 @@ def test_graph_captures_are_counted(captures, monkeypatch, tmp_path):
     assert rec.counters == {"graph_captures": 2}
 
 
-@pytest.mark.parametrize("kind", ["one", "wide"])
+@pytest.mark.parametrize("kind", ["one", "wide", "wide-sync"])
 def test_phases_on_the_profiler_clock(captures, kind, tmp_path):
-    """Under a CPU torch.profiler session: each phase's start and end in
-    the file lie within 0.25 ms of its range in the profiler's Chrome
-    trace (``ts`` plus ``baseTimeNanoseconds`` in both); a drain call of
-    several segments is one range over its drain spans."""
+    """Under a CPU torch.profiler session (for the wideband loop one that
+    records every thread): each phase's start and end in the file lie
+    within 0.25 ms of its range in the profiler's Chrome trace (``ts``
+    plus ``baseTimeNanoseconds`` in both), in the phase's own thread.
+    The one-station loop's drain call of several groups is one range over
+    its drain spans; the wideband loop's drain worker opens one range a
+    segment, at ``--pipeline 2``, where the worker and the serving thread
+    run Python at once, and at ``--pipeline 0`` (``wide-sync``), where
+    they take turns."""
     path = tmp_path / "spans.json"
     extra = ["--trace-spans", str(path)]
     if kind == "one":
         extra += ["--pll-tier", "3"]
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        _main(_argv(kind, captures, extra))
+    elif kind == "wide-sync":
+        extra += ["--pipeline", "0"]
+    with (profile(activities=[ProfilerActivity.CPU]) if kind == "one"
+          else _profile()) as prof:
+        _main(_argv(kind.split("-")[0], captures, extra))
     prof.export_chrome_trace(str(tmp_path / "prof.json"))
     pdoc, pev = _events(tmp_path / "prof.json")
     doc, events = _events(path)
     shift = (doc["baseTimeNanoseconds"] - pdoc["baseTimeNanoseconds"]) / 1e3
     ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in pev
-                    if e.get("cat") == "user_annotation"
-                    and e["name"] in PHASES)
+                    if e.get("cat") == "cpu_op" and e["name"] in PHASES)
+    range_tid = {(e["ts"], e["name"]): e["tid"] for e in pev
+                 if e.get("cat") == "cpu_op"}
     phases = sorted((t0 + shift, t1 + shift, n)
                     for n, c, t0, t1, a in _spans(events).values()
                     if c == "phase")
@@ -242,9 +287,14 @@ def test_phases_on_the_profiler_clock(captures, kind, tmp_path):
         assert inside, (name, r0)
         assert abs(min(inside)[0] - r0) < TOL_US, (name, min(inside)[0] - r0)
         assert abs(max(t1 for _, t1 in inside) - r1) < TOL_US, name
-        assert name == "drain" or len(inside) == 1
+        assert (name == "drain" and kind == "one") or len(inside) == 1
         covered += inside
     assert sorted(covered) == sorted((t0, t1) for t0, t1, _ in phases)
-    if kind == "wide":      # --pipeline 2 drains two segments a call
-        drains = sum(n == "drain" for *_, n in ranges)
-        assert drains < sum(n == "drain" for *_, n in phases)
+    tids = {name: {range_tid[(r0, name)] for r0, _, n in ranges if n == name}
+            for name in PHASES}
+    if kind != "one":       # one range a segment, in the worker's thread
+        assert sum(n == "drain" for *_, n in ranges) == sum(
+            n == "drain" for *_, n in phases)
+        assert len(tids["drain"]) == 1 and tids["drain"] != tids["submit"]
+    else:
+        assert tids["drain"] == tids["submit"]
