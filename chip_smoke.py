@@ -320,6 +320,12 @@ loops of the alternative decode after the build, and stops; it runs from an
 older checkout of the port too (copy this script there), so that two forms
 of the loops can be timed in one call. ``--experiments`` runs phases 1-2
 and then phase 11 only, and stops; it prints no result line.
+Phase 12 runs the CLI's multi-tuner loop (``--tuners``) on 8 tuners, each
+its own station, graphed and on the eager entries (``EAGER_CLI``), and the
+one-station CLI on each stream alone: every tuner's PCM file
+byte-identical across the three, its ``ch<k>`` lines the one-station
+CLI's events, its PS decoded. ``--tuners`` runs phases 1-2 and then phase
+12 only, and stops; without a card it says so and exits 0.
 """
 
 from __future__ import annotations
@@ -378,6 +384,21 @@ EAGER_CLI = (
     "R.jit_step = R.step; R.jit_run_segment_staged = R.run_segment_staged; "
     "B.run_wideband_u8_jit = B.run_wideband_u8; "
     "from real_time_sdr_tpu_torch import cli; sys.exit(cli.main())")
+
+# the one-station CLI on each of several streams in turn, in one process:
+# ``-c ONE_EACH <segment> <path> ...``; each run's stderr follows a line
+# ``== <path>`` and its PCM goes to ``<path>.pcm``
+ONE_EACH = (
+    "import sys\n"
+    "from real_time_sdr_tpu_torch import cli\n"
+    "for p in sys.argv[2:]:\n"
+    "    print('== ' + p, file=sys.stderr, flush=True)\n"
+    "    rc = cli.main(['0', 'r', '--segment', sys.argv[1], '--input', p,\n"
+    "                   '--output', p + '.pcm'])\n"
+    "    if rc:\n"
+    "        sys.exit(rc)\n")
+TUNER_BANK = 8           # tuners of the card's tuner-bank phase
+TUNER_BLOCKS = 32        # blocks a tuner: PS decodes from ~block 20
 
 
 def fail(msg: str) -> None:
@@ -829,6 +850,10 @@ def main() -> None:
     ap.add_argument("--experiments", action="store_true",
                     help="run the card check and the build, then only phase "
                     "11 (the experiments), and stop; prints no result line")
+    ap.add_argument("--tuners", action="store_true",
+                    help="run the card check and the build, then only phase "
+                    "12 (the multi-tuner CLI), and stop; without a card it "
+                    "says so and exits 0; prints no result line")
     ap.add_argument("--loops", action="store_true",
                     help="check and time only the two loops of the "
                     "alternative RDS decode (mm_timing, costas_scan) after "
@@ -839,6 +864,9 @@ def main() -> None:
 
     import numpy as np
     import torch
+    if args.tuners and not torch.cuda.is_available():
+        print("phase 12 (multi-tuner CLI) skipped: no CUDA card")
+        return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a card")
     try:
@@ -894,6 +922,7 @@ def main() -> None:
             _sharded_run, time_sharded_run, time_sharded_run_bank)
         from real_time_sdr_tpu_torch.parallel.wideband import (
             ShardedFusedWideband, ShardedWideband)
+        from real_time_sdr_tpu_torch.config import mode_config
         from real_time_sdr_tpu_torch.utils import benchkit, fir_digest, synth
         from real_time_sdr_tpu_torch.utils.audio import stereo_pcm
         from real_time_sdr_tpu_torch.utils.logging import (
@@ -1285,6 +1314,111 @@ def main() -> None:
     if args.experiments:
         phase_11(None)
         print("--experiments: stopping after phase 11")
+        return
+
+    def phase_12():
+        """The multi-tuner CLI (``--tuners``) on TUNER_BANK tuners, each
+        its own station, in 4-block segments, 2 in flight: graphed, on the
+        eager entries (``EAGER_CLI``) and, stream by stream, the
+        one-station CLI at the same segment. Every tuner's PCM file
+        byte-identical across the three, its ``ch<k>`` RDS lines the
+        one-station CLI's events, its PS decoded."""
+        t12 = time.perf_counter()
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        from real_time_sdr_tpu_torch import cli as cli_mod
+
+        def events(lines_, k=None):
+            """Event lines as the one-station CLI writes them: its own, or
+            tuner k's ``ch<k>`` lines rewritten through ``cli._emit``."""
+            if k is None:
+                return [ln for ln in lines_ if ln.startswith((
+                    "PI: ", "PTY: ", "Program Service: ", "RadioText: "))]
+            import ast
+            import contextlib
+            import io
+            buf = io.StringIO()
+            with contextlib.redirect_stderr(buf):
+                for ln in lines_:
+                    head, _, val = ln.partition(": ")
+                    if head.split(" ")[0] == f"ch{k}":
+                        kind = head.split(" ", 1)[1]
+                        cli_mod._emit(kind, ast.literal_eval(val)
+                                      if kind in ("group", "af") else val)
+            return buf.getvalue().splitlines()
+
+        with tempfile.TemporaryDirectory() as tmp12:
+            paths = []
+            for k in range(TUNER_BANK):
+                iq_k, _ = synth.station_iq(
+                    cfg0, TUNER_BLOCKS, ps_name=f"TUNER-{k:02d}", pi=0x7B00 + k,
+                    tone_left=500.0 + 125.0 * k, tone_right=1500.0)
+                paths.append(os.path.join(tmp12, f"tuner_{k}.raw"))
+                iq_k.tofile(paths[-1])
+            runs = {}
+            for form, cmd in (
+                    ("graphed", [sys.executable, "-m",
+                                 "real_time_sdr_tpu_torch.cli"]),
+                    ("eager", [sys.executable, "-c", EAGER_CLI])):
+                out = os.path.join(tmp12, form)
+                t_ = time.perf_counter()
+                res = subprocess.run(
+                    [*cmd, "0", "r", "--tuners", ",".join(paths),
+                     "--output-dir", out, "--segment", "4", "--pipeline",
+                     "2", "--warmup", "--stats"], capture_output=True,
+                    text=True, env=env, cwd=root, timeout=600)
+                if res.returncode != 0:
+                    fail(f"the {form} --tuners CLI exited {res.returncode}:"
+                         f"\n{res.stderr[-3000:]}")
+                lines_ = res.stderr.splitlines()
+                pcm_ = []
+                for k in range(TUNER_BANK):
+                    with open(os.path.join(out, f"station_{k}.pcm"),
+                              "rb") as f:
+                        pcm_.append(f.read())
+                tot_ = next(ln for ln in lines_ if ln.startswith("total:"))
+                runs[form] = (lines_, pcm_)
+                print(f"--tuners CLI, {TUNER_BANK} tuners x {TUNER_BLOCKS} "
+                      f"blocks ({form}): {time.perf_counter() - t_:.1f} s "
+                      f"wall with set-up; {tot_}")
+            t_ = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-c", ONE_EACH, "4", *paths],
+                capture_output=True, text=True, env=env, cwd=root,
+                timeout=900)
+            if res.returncode != 0:
+                fail(f"the one-station CLI exited {res.returncode}:\n"
+                     f"{res.stderr[-3000:]}")
+            alone = res.stderr.split("== ")[1:]
+            print(f"one-station CLI on each of {TUNER_BANK} streams in one "
+                  f"process: {time.perf_counter() - t_:.1f} s")
+            g_lines, g_pcm = runs["graphed"]
+            want = TUNER_BLOCKS * cfg0.audio_block * 2 * 2
+            for k, p in enumerate(paths):
+                with open(p + ".pcm", "rb") as f:
+                    one = f.read()
+                if len(one) != want or g_pcm[k] != one:
+                    fail(f"tuner {k}: the --tuners PCM differs from the "
+                         "one-station CLI's on its stream")
+                if runs["eager"][1][k] != g_pcm[k]:
+                    fail(f"tuner {k}: the --tuners PCM differs between the "
+                         "graphed and the eager entries")
+                ev_one = events(alone[k].splitlines())
+                if not ev_one or events(g_lines, k) != ev_one:
+                    fail(f"tuner {k}: the ch{k} lines are not the one-station"
+                         " CLI's events")
+                if f"ch{k} ps: TUNER-{k:02d}" not in g_lines:
+                    fail(f"tuner {k}: its PS was not decoded")
+        print(f"phase 12 (multi-tuner CLI) {time.perf_counter() - t12:.1f} s:"
+              f" {TUNER_BANK} tuners' PCM byte-identical graphed, eager and "
+              "one-station, RDS events equal, every PS decoded; on "
+              f"{card}")
+
+    cfg0 = mode_config(0)
+    if args.tuners:
+        phase_12()
+        print("--tuners: stopping after phase 12")
         return
 
     # -- fixture: one station, 36 blocks, tiled to 32 shifted channels -------
@@ -3796,6 +3930,9 @@ def main() -> None:
 
     # -- 11. the experiments (real_time_sdr_tpu_torch/experiments/) ---------
     phase_11(kernels)
+
+    # -- 12. the multi-tuner CLI ------------------------------------------
+    phase_12()
 
     if "jax" in sys.modules:
         fail("jax was imported")

@@ -31,7 +31,15 @@ tensor and one fetch per segment, served by
 thread that waits on the segment's event and drains it as soon as the
 device is done, not when later input arrives; there ``--pipeline`` bounds
 the segments submitted and not yet drained (0: each segment is drained
-before the next read). ``--retune SEG:STATION:HZ`` re-points a station
+before the next read). With ``--tuners`` (``run_tuners``) the same
+serving thread and drain worker decode independent tuners, one input per
+tuner, as the rows of one channel bank (``ChannelBank.run_segment_staged``
+from one pinned (T, ...) staged slot a segment):
+
+    python -m real_time_sdr_tpu_torch.cli 0 r --tuners a.raw,b.raw,c.raw \
+        --output-dir stations --segment 4 --pipeline 2
+
+``--retune SEG:STATION:HZ`` re-points a station
 of the fused frontend between segments, ``--checkpoint`` resumes onto the
 grid the saved state was built on (its ``.rds.json`` sidecar names it),
 and ``--wb-fir {f32,bf16,bf16x2}`` sets the wideband frontend's precision
@@ -43,7 +51,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
+import select
 import sys
 import time
 from collections import deque
@@ -110,7 +120,8 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--pipeline", type=int, default=1,
                     help="groups kept in flight on the device before the "
                          "PCM fetch syncs; each adds latency but overlaps "
-                         "host work with the device. With --stations: the "
+                         "host work with the device. With --stations or "
+                         "--tuners: the "
                          "most segments submitted and not yet drained by "
                          "the drain thread, which drains each as soon as "
                          "the device has finished it; the next upload "
@@ -136,6 +147,14 @@ def make_parser() -> argparse.ArgumentParser:
                     help="comma-separated station offsets in Hz: treat the "
                          "input as ONE wideband capture and channelize all "
                          "stations (with --wide-fs, --output-dir)")
+    ap.add_argument("--tuners", default=None, metavar="PATH,PATH,...",
+                    help="comma-separated inputs, one raw uint8 IQ stream "
+                         "per tuner at the mode's RF rate: decode every "
+                         "tuner as one row of a channel bank, one graphed "
+                         "call per --segment, one station_<k>.pcm per tuner "
+                         "under --output-dir, RDS text as ch<k> lines (not "
+                         "with --stations, --checkpoint, --staged 0, "
+                         "--input or --output)")
     ap.add_argument("--wide-fs", type=int, default=None,
                     help="wideband capture sample rate (integer multiple of "
                          "the mode's RF rate; default 4x)")
@@ -217,10 +236,12 @@ class _Uploader:
 
     staged: each group goes into the next slot of a ring of host buffers
     (page-locked when the device is a card) and is uploaded with
-    ``non_blocking=True``. With a ``frontend`` (the single-station path)
-    the slot receives the staged operand ``[tail | group]``
-    (``Frontend.stage_segment``) for ``Receiver.run_segment_staged``, and
-    ``tail`` moves on to the group's last ``tail_len`` bytes; without one
+    ``non_blocking=True``. With a ``frontend`` (the single-station and the
+    multi-tuner paths) the slot receives the staged operand ``[tail |
+    group]`` (``Frontend.stage_segment``) for ``Receiver.run_segment_staged``,
+    of each of the ``lead`` rows (``(T,)``: T tuners in one slot, one
+    upload), and ``tail`` moves on to the group's last ``tail_len`` bytes
+    of each row; without one
     (the wideband path) it receives the group as it is. A slot is reused
     ``slots`` groups later. A group is drained only after its event, which
     follows its upload, completes: the single-station loop drains every
@@ -232,13 +253,15 @@ class _Uploader:
     group."""
 
     def __init__(self, torch, device, nbytes: int, slots: int, staged: bool,
-                 frontend=None):
+                 frontend=None, lead: tuple = ()):
         self.torch = torch
         self.device = device
         self.frontend = frontend
         self.tail = (None if frontend is None else
-                     np.full(frontend.tail_len, 128, dtype=np.uint8))
-        size = nbytes + (0 if frontend is None else frontend.tail_len)
+                     np.full(lead + (frontend.tail_len,), 128,
+                             dtype=np.uint8))
+        size = math.prod(lead) * (
+            nbytes + (0 if frontend is None else frontend.tail_len))
         self.ring = ([torch.empty(size, dtype=torch.uint8,
                                   pin_memory=device.type == "cuda")
                       for _ in range(slots)] if staged else None)
@@ -250,19 +273,24 @@ class _Uploader:
         return self.ring is not None and self.frontend is not None
 
     def __call__(self, seg: np.ndarray):
-        torch = self.torch
         if self.ring is None:
-            return torch.from_numpy(seg).to(self.device)
+            return self.torch.from_numpy(seg).to(self.device)
+        return self.stage(seg).to(self.device, non_blocking=True)
+
+    def stage(self, seg: np.ndarray):
+        """The group (``lead`` rows of it with a ``frontend``) written into
+        the ring's next slot: that slot's host tensor, ready to upload."""
         slot = self.ring[self.k % len(self.ring)]
         self.k += 1
         if self.frontend is None:
             buf = slot[:seg.shape[0]]
-            buf.copy_(torch.from_numpy(seg))
-        else:
-            buf = slot[:self.frontend.staged_len(seg.shape[0])]
-            self.frontend.stage_segment(self.tail, seg, out=buf.numpy())
-            self.tail = seg[seg.shape[0] - self.tail.shape[0]:].copy()
-        return buf.to(self.device, non_blocking=True)
+            buf.copy_(self.torch.from_numpy(seg))
+            return buf
+        lead, n = seg.shape[:-1], self.frontend.staged_len(seg.shape[-1])
+        buf = slot[:math.prod(lead) * n].view(*lead, n)
+        self.frontend.stage_segment(self.tail, seg, out=buf.numpy())
+        self.tail = seg[..., seg.shape[-1] - self.tail.shape[-1]:].copy()
+        return buf
 
 
 def _fetch(torch, device, tensors):
@@ -327,6 +355,146 @@ class _DrainWorker:
         self._pool.shutdown(cancel_futures=True)
 
 
+def _row_drain(spans, outs, framers, lines: list | None = None):
+    """The drain of the multi-row loops (``run_wideband``, ``run_tuners``),
+    run by their ``_DrainWorker`` on each segment ``((pcm, nbits, bits),
+    event, blocks, in_flight span, segment)``: one drain phase (and
+    profiler range) a segment, from the start of its wait on the device,
+    then row by row the row's PCM into ``outs[row]`` and its RDS bits into
+    ``framers[row]`` (``framers`` None: no RDS). The list ``framers`` is
+    read at each drain, so a retune may replace a framer in it.
+
+    ``lines`` (``run_tuners``: the list its framers append their event
+    lines to; its ``outs`` are unbuffered): a row's PCM is one ``write``,
+    its segment's bits one ``feed`` (the framer's walk does not depend on
+    how its stream is cut, so the events are the same), and the segment's
+    lines one write to stderr at the end. Each call that enters the kernel
+    releases the GIL, which the serving thread may then hold until its own
+    next system call: fewer such calls keep the drain from queueing behind
+    it."""
+    now = time.perf_counter_ns
+
+    def drain_one(item) -> None:
+        (pcm, nbits, bits), ev, g, fl, gid = item
+        dr = spans.live and spans.phase("drain", gid)
+        if fl:
+            spans.end(fl, dr.t0)
+        dw = dr and spans.span("drain_wait", dr)
+        if ev is not None:
+            ev.synchronize()   # the only wait on the device
+        if dw:
+            spans.end(dw)
+        pcm = pcm.numpy()
+        if framers is not None:
+            nbits, bits = nbits.numpy(), bits.numpy()
+        w_ns = r_ns = 0
+        for st in range(len(outs)):
+            t = dr and now()
+            if lines is not None:
+                view = memoryview(pcm[st]).cast("B")
+                while view:
+                    view = view[outs[st].write(view):]
+            else:
+                pcm[st].tofile(outs[st])
+            if dr:
+                t1 = now()
+                w_ns += t1 - t
+            if framers is not None:
+                fed = [bits[st, j, :nbits[st, j]] for j in range(g)
+                       if nbits[st, j] > 0]
+                if lines is None:
+                    for b in fed:
+                        framers[st].feed(b)
+                elif fed:
+                    framers[st].feed(np.concatenate(fed))
+                if dr:
+                    r_ns += now() - t1
+        if lines:
+            t = dr and now()
+            sys.stderr.write("".join(lines))
+            lines.clear()
+            if dr:
+                r_ns += now() - t
+        if dr:
+            spans.add(dr, "write", w_ns)
+            if framers is not None:
+                spans.add(dr, "rds", r_ns)
+                spans.count("rds_feeds", int((nbits > 0).sum()))
+            spans.end(dr)
+    return drain_one
+
+
+def _wait_bound(worker, bound: int, spans, sub) -> float:
+    """Before an upload of the multi-row loops: wait on the drain worker
+    while ``bound`` segments are not yet drained (the upload ring's slot
+    may still be in flight); returns the seconds waited."""
+    if worker.pending() < bound:
+        return 0.0
+    spans.count("drain_backpressure")
+    sp = sub and spans.span("backpressure_wait", sub)
+    w0 = time.perf_counter()
+    worker.wait(bound - 1)
+    waited = time.perf_counter() - w0
+    if sp:
+        spans.end(sp)
+    return waited
+
+
+def _fetch_rows(torch, device, spans, sub, sp, out, pcm, rds: bool, g: int,
+                blocks: int, seg_i: int):
+    """The multi-row loops' fetch: ONE batched (rows, ...) PCM tensor, the
+    RDS bits (rows, g, ...) when ``rds``, and one fetch a segment. ``sp``
+    is the open ``fetch`` span and ``sub`` the submit phase, both closed
+    here; ``blocks`` is added to the ``blocks`` counter. Returns the drain
+    worker's item."""
+    nbits = bits = None
+    if rds:
+        rows = pcm.shape[0]
+        nbits = out.rds_nbits.reshape(rows, g)
+        bits = out.rds_bits.reshape(rows, g, -1)
+    host, ev = _fetch(torch, device, [pcm, nbits, bits])
+    fl = None
+    if sp:
+        spans.end(sp)
+        fl = spans.flight("in_flight", sub, sp.t1)
+        spans.count("segments")
+        spans.count("blocks", blocks)
+    if sub:
+        spans.end(sub)
+    return host, ev, g, fl, seg_i
+
+
+def _segment_done(args, worker, t0: float, waited: float, g: int,
+                  n_blocks: int, budget: float) -> float:
+    """After a multi-row loop has handed a segment of ``g`` blocks to its
+    worker: at ``--pipeline 0`` wait for its drain, then the segment's
+    ``--stats`` time (from ``t0``, ``waited`` and this wait on the worker
+    left out, plus the time of the drains released since the line before)
+    and, with ``--stats``, its line. Returns that time."""
+    if not args.pipeline:
+        w0 = time.perf_counter()
+        worker.wait(0)
+        waited += time.perf_counter() - w0
+    dt = max(time.perf_counter() - t0 - waited + worker.take_ns() / 1e9,
+             1e-9)
+    if args.stats:
+        sys.stderr.write(f"block {n_blocks}: {dt*1e3:.2f} ms "
+                         f"({g*budget/dt:.1f}x real time)\n")
+    return dt
+
+
+def _print_total(args, device, n_blocks: int, t_total: float,
+                 budget: float) -> None:
+    """The multi-row loops' ``--stats`` summary line, and the kernels'
+    launch counts on a card."""
+    if args.stats and n_blocks:
+        print(f"total: {n_blocks} blocks, avg {t_total/n_blocks*1e3:.2f} ms"
+              f"/block, {budget*n_blocks/t_total:.1f}x real time",
+              file=sys.stderr)
+        if device.type == "cuda":
+            _print_launches()
+
+
 def _native_io():
     """The native I/O module (``utils.native_io``), its library built at most once
     per checkout: concurrent first runs take turns on a lock file, so no
@@ -354,8 +522,21 @@ def main(argv=None) -> int:
         print(f"error: --pipeline must be >= 0, got {args.pipeline}",
               file=sys.stderr)
         return 2
+    if args.tuners is not None:
+        refused = [flag for flag, on in (
+            ("--stations", args.stations is not None),
+            ("--checkpoint", args.checkpoint is not None),
+            ("--staged 0", args.staged == "0"),
+            ("--input", args.input != "-"),
+            ("--output", args.output != "-")) if on]
+        if refused:
+            print(f"error: --tuners does not take {', '.join(refused)} (the "
+                  "tuners' inputs are its paths, their PCM goes to "
+                  "--output-dir)", file=sys.stderr)
+            return 2
     given = ["--" + f.replace("_", "-") for f in WIDEBAND_ONLY_FLAGS
-             if getattr(args, f) is not None]
+             if getattr(args, f) is not None
+             and not (f == "output_dir" and args.tuners is not None)]
     if given and args.stations is None:
         print(f"error: {', '.join(given)} only applies to the wideband "
               "(multi-station) mode: give --stations too", file=sys.stderr)
@@ -382,6 +563,8 @@ def main(argv=None) -> int:
     try:
         if args.stations is not None:
             return run_wideband(args, torch, device, rx, rx.cfg, spans)
+        if args.tuners is not None:
+            return run_tuners(args, torch, device, rx, spans)
         return _serve(args, torch, device, rx, spans)
     finally:
         if args.trace_spans:
@@ -546,47 +729,10 @@ def run_wideband(args, torch, device, rx, cfg, spans) -> int:
         outs = [files.enter_context(
             open(os.path.join(outdir, f"station_{k}.pcm"), "wb"))
             for k in range(n_st)]
-        now = time.perf_counter_ns
-
-        def drain_one(item) -> None:
-            # in the worker's thread: one drain phase (and profiler range)
-            # a segment, from the start of its wait on the device
-            (pcm, nbits, bits), ev, g, fl, gid = item
-            dr = spans.live and spans.phase("drain", gid)
-            if fl:
-                spans.end(fl, dr.t0)
-            dw = dr and spans.span("drain_wait", dr)
-            if ev is not None:
-                ev.synchronize()   # the only wait on the device
-            if dw:
-                spans.end(dw)
-            pcm = pcm.numpy()
-            if framers is not None:
-                nbits, bits = nbits.numpy(), bits.numpy()
-            w_ns = r_ns = 0
-            for st in range(n_st):
-                t = dr and now()
-                pcm[st].tofile(outs[st])
-                if dr:
-                    t1 = now()
-                    w_ns += t1 - t
-                if framers is not None:
-                    for j in range(g):
-                        if nbits[st, j] > 0:
-                            framers[st].feed(bits[st, j, :nbits[st, j]])
-                    if dr:
-                        r_ns += now() - t1
-            if dr:
-                spans.add(dr, "write", w_ns)
-                if framers is not None:
-                    spans.add(dr, "rds", r_ns)
-                    spans.count("rds_feeds", int((nbits > 0).sum()))
-                spans.end(dr)
-
         # (host tensors, event, blocks, in_flight span, segment) per
         # segment; the device runs the segments in order, so they complete
         # in order. Closed before the files (the stack unwinds in reverse).
-        worker = _DrainWorker(drain_one)
+        worker = _DrainWorker(_row_drain(spans, outs, framers))
         files.callback(worker.close)
         # uploads wait while this many segments are not yet drained
         bound = max(args.pipeline, 1)
@@ -622,16 +768,7 @@ def run_wideband(args, torch, device, rx, cfg, spans) -> int:
                 break
             t0 = time.perf_counter()
             sub = spans.live and spans.phase("submit", seg_i)
-            waited = 0.0
-            if worker.pending() >= bound:
-                # the upload ring's slot may still be in flight
-                spans.count("drain_backpressure")
-                sp = sub and spans.span("backpressure_wait", sub)
-                w0 = time.perf_counter()
-                worker.wait(bound - 1)
-                waited = time.perf_counter() - w0
-                if sp:
-                    spans.end(sp)
+            waited = _wait_bound(worker, bound, spans, sub)
             # an EOF partial segment runs at its exact shape (the real
             # blocks' outputs do not depend on padding): a graph of its own
             raw = np.frombuffer(buf, dtype=np.uint8, count=g * block_bytes)
@@ -645,33 +782,13 @@ def run_wideband(args, torch, device, rx, cfg, spans) -> int:
             if sp:
                 spans.end(sp)
                 sp = spans.span("fetch", sub)
-            nbits = bits = None
-            if framers is not None:
-                nbits = out.rds_nbits.reshape(n_st, g)
-                bits = out.rds_bits.reshape(n_st, g, -1)
-            # ONE batched (S, ...) PCM tensor and one fetch per segment
-            host, ev = _fetch(torch, device, [pcm_of(out), nbits, bits])
-            fl = None
-            if sp:
-                spans.end(sp)
-                fl = spans.flight("in_flight", sub, sp.t1)
-                spans.count("segments")
-                spans.count("blocks", g)
-            if sub:
-                spans.end(sub)
-            worker.submit((host, ev, g, fl, seg_i))
+            worker.submit(_fetch_rows(torch, device, spans, sub, sp, out,
+                                      pcm_of(out), framers is not None, g,
+                                      g, seg_i))
             seg_i += 1
-            if not args.pipeline:
-                w0 = time.perf_counter()
-                worker.wait(0)
-                waited += time.perf_counter() - w0
             n_blocks += g
-            dt = max(time.perf_counter() - t0 - waited
-                     + worker.take_ns() / 1e9, 1e-9)
-            t_total += dt
-            if args.stats:
-                sys.stderr.write(f"block {n_blocks}: {dt*1e3:.2f} ms "
-                                 f"({g*budget/dt:.1f}x real time)\n")
+            t_total += _segment_done(args, worker, t0, waited, g, n_blocks,
+                                     budget)
         worker.wait(0)
         t_total += worker.take_ns() / 1e9
     if args.checkpoint:
@@ -684,15 +801,180 @@ def run_wideband(args, torch, device, rx, cfg, spans) -> int:
                      {"kind": "wideband", "stations": list(fe.offsets),
                       "framers": [fr.state_dict() for fr in framers or []]})
         print(f"saved state to {args.checkpoint}", file=sys.stderr)
-    if args.stats and n_blocks:
-        print(f"total: {n_blocks} blocks, avg {t_total/n_blocks*1e3:.2f} ms"
-              f"/block, {budget*n_blocks/t_total:.1f}x real time",
-              file=sys.stderr)
-        if device.type == "cuda":
-            _print_launches()
+    _print_total(args, device, n_blocks, t_total, budget)
     print(f"channelized {n_st} stations x {n_blocks} blocks",
           file=sys.stderr)
     return 0
+
+
+def run_tuners(args, torch, device, rx, spans) -> int:
+    """Multi-tuner mode: T independent tuners, each its own uint8 IQ stream
+    at the mode's RF rate (``--tuners PATH,...``), decoded as the T rows of
+    one channel bank, as T one-station CLIs would decode them apart.
+
+    The serving thread reads ``--segment`` blocks from every input, each as
+    it has data (free-running tuners complete a segment at staggered
+    times), stages ``[tail | segment]`` of every tuner into one pinned
+    (T, staged_len) slot of the upload ring, uploads it in one copy,
+    replays one graph (``ChannelBank.run_segment_staged``), starts one
+    (T, ...) fetch and hands it to a ``_DrainWorker``, which waits on the
+    segment's event and, tuner by tuner, writes its PCM to
+    ``station_<k>.pcm`` under ``--output-dir`` and feeds its RDS bits to
+    its framer (``ch<k> <kind>: <val>`` lines). ``--pipeline``, ``--stats``
+    and ``--warmup`` as in ``run_wideband``. The tuners run in lock step:
+    the loop ends at the first input's end, on a last partial segment of
+    the blocks every input delivered.
+
+    ``spans``: ``run_wideband``'s phases, spans and counters, with
+    ``skew_wait`` inside ``read_wait`` (from the first tuner's segment
+    complete to the last's), ``stage`` (into the ring's slot) before
+    ``upload`` (the copy to the device), ``blocks`` counting every tuner's
+    blocks, and the counter ``tuners``."""
+    from real_time_sdr_tpu_torch.models.rds_framing import RdsFramer
+    from real_time_sdr_tpu_torch.parallel.channel import ChannelBank
+    from real_time_sdr_tpu_torch.utils.audio import mono_pcm, stereo_pcm
+
+    if args.io_depth != 4 or args.drop_oldest or args.monitor:
+        print("warning: --io-depth/--drop-oldest/--monitor apply to the "
+              "single-station native I/O path and are ignored in "
+              "--tuners mode", file=sys.stderr)
+    paths = args.tuners.split(",")
+    if "" in paths or "-" in paths:
+        print(f"error: --tuners takes comma-separated file paths, got "
+              f"{args.tuners!r}", file=sys.stderr)
+        return 2
+    cfg = rx.cfg
+    n_t = len(paths)
+    bank = ChannelBank(rx, n_t)
+    # the framers' event lines, written once a drain (``_row_drain``)
+    lines: list[str] = []
+    framers = ([RdsFramer(on_event=lambda kind, val, k=k: lines.append(
+        f"ch{k} {kind}: {val}\n"), correct_bursts=args.rds_correct)
+        for k in range(n_t)] if rx.rds else None)
+    block_bytes = 2 * cfg.block_size_iq
+    budget = cfg.block_size_iq / cfg.rf_fs
+    seg_n = max(1, args.segment)
+    outdir = args.output_dir or "."
+    os.makedirs(outdir, exist_ok=True)
+    bstate = bank.init_state()
+    n_blocks = 0
+    t_total = 0.0
+
+    def pcm_of(out):
+        return (stereo_pcm(out.left, out.right) if rx.stereo
+                else mono_pcm(out.mono))
+
+    if args.warmup:
+        t0 = time.perf_counter()
+        n2 = seg_n * block_bytes
+        silent = torch.full((n_t, rx.frontend.staged_len(n2)), 128,
+                            dtype=torch.uint8, device=device)
+        # captures the segment's graph; the outputs are discarded
+        _, wout = bank.run_segment_staged(bank.init_state(), silent, n2)
+        pcm_of(wout).cpu()
+        print(f"warmed up in {time.perf_counter() - t0:.1f} s",
+              file=sys.stderr)
+
+    upload = _Uploader(torch, device, seg_n * block_bytes, args.pipeline + 2,
+                       True, frontend=rx.frontend, lead=(n_t,))
+    buf = np.empty((n_t, seg_n * block_bytes), dtype=np.uint8)
+    with contextlib.ExitStack() as files:
+        # unbuffered: each read is one system call, which the poll allows
+        fins = [files.enter_context(open(p, "rb", buffering=0))
+                for p in paths]
+        outs = [files.enter_context(
+            open(os.path.join(outdir, f"station_{k}.pcm"), "wb",
+                 buffering=0))
+            for k in range(n_t)]
+        worker = _DrainWorker(_row_drain(spans, outs, framers, lines))
+        files.callback(worker.close)
+        bound = max(args.pipeline, 1)
+        spans.count("tuners", n_t)
+        seg_i = g = 0
+        got = [0]
+        while True:
+            want = seg_n
+            if args.max_blocks:
+                want = min(want, args.max_blocks - n_blocks)
+                if want <= 0:
+                    break
+            rw = spans.live and spans.phase("read_wait", seg_i)
+            got, t_first, t_last = _read_rows(fins, buf, want * block_bytes)
+            if rw:
+                sk = t_first is not None and spans.span("skew_wait", rw,
+                                                        t_first)
+                if sk:
+                    spans.end(sk, t_last)
+                spans.end(rw)
+                if seg_i and not worker.pending():
+                    spans.count("drained_before_next_read")
+            g = min(got) // block_bytes
+            if not g:
+                break
+            t0 = time.perf_counter()
+            sub = spans.live and spans.phase("submit", seg_i)
+            waited = _wait_bound(worker, bound, spans, sub)
+            # an EOF partial segment runs at its exact shape: a graph of
+            # its own
+            sp = sub and spans.span("stage", sub)
+            xh = upload.stage(buf[:, :g * block_bytes])
+            if sp:
+                spans.end(sp)
+                sp = spans.span("upload", sub)
+            x = xh.to(device, non_blocking=True)
+            if sp:
+                spans.end(sp)
+                sp = spans.span("dispatch", sub)
+            bstate, out = bank.run_segment_staged(bstate, x, g * block_bytes)
+            if sp:
+                spans.end(sp)
+                sp = spans.span("fetch", sub)
+            worker.submit(_fetch_rows(torch, device, spans, sub, sp, out,
+                                      pcm_of(out), framers is not None, g,
+                                      n_t * g, seg_i))
+            seg_i += 1
+            n_blocks += g
+            t_total += _segment_done(args, worker, t0, waited, g, n_blocks,
+                                     budget)
+            if min(got) < want * block_bytes:
+                break
+        worker.wait(0)
+        t_total += worker.take_ns() / 1e9
+    left = sum(got) - n_t * g * block_bytes
+    if left:
+        print(f"warning: the inputs ended unevenly: {left} bytes past the "
+              f"shortest input's last whole block were not decoded",
+              file=sys.stderr)
+    _print_total(args, device, n_blocks, t_total, budget)
+    print(f"decoded {n_t} tuners x {n_blocks} blocks", file=sys.stderr)
+    return 0
+
+
+def _read_rows(fins, buf: np.ndarray, n: int):
+    """Fill ``buf[k, :n]`` from ``fins[k]`` (unbuffered files) for every
+    k, reading each input whenever it has data. Returns (the bytes read per
+    row, short only at that input's end, and the ``time.perf_counter_ns``
+    at which the first and the last row filled, None when none did)."""
+    poll = select.poll()
+    rows = {f.fileno(): k for k, f in enumerate(fins)}
+    views = [memoryview(r) for r in buf]
+    got = [0] * len(fins)
+    for fd in rows:
+        poll.register(fd, select.POLLIN)
+    first = last = None
+    while rows:
+        for fd, _ in poll.poll():
+            k = rows[fd]
+            r = fins[k].readinto(views[k][got[k]:n])
+            got[k] += r
+            if r and got[k] < n:
+                continue
+            poll.unregister(fd)
+            del rows[fd]
+            if r:
+                last = time.perf_counter_ns()
+                first = first or last
+    return got, first, last
 
 
 def _resume_wideband(args, fe, fused, offsets, framers, new_framer):

@@ -34,7 +34,9 @@ are compiled in the JAX package: on the card each is one captured CUDA
 graph per input shape (kept in the receiver's ``graphs``, one cache per
 replica), replayed once per call and device, whose outputs are fresh
 tensors; on the CPU they run their eager functions. ``_step``, ``_run``
-and ``_run_segment_demod`` are the eager forms.
+and ``_run_segment_demod`` are the eager forms. ``run_segment_staged``
+serves a bank of independent tuners from host-staged rows (the CLI's
+``--tuners``); it has no counterpart in the JAX package.
 """
 
 from __future__ import annotations
@@ -185,6 +187,17 @@ class ChannelBank:
         ``Receiver.run_segment``): each replica's ``jit_step``."""
         self._rows(segments, "segments")
         return self._each(Receiver.jit_step, state, segments)
+
+    def run_segment_staged(self, state, staged, n2: int):
+        """staged: (C, rx.frontend.staged_len(n2)) uint8, each row ``[tail
+        | segment]`` as ``Frontend.stage_segment`` writes it for an
+        ``n2``-byte segment (with several devices: ``place``'s tuple, or
+        the whole array): each replica's ``jit_run_segment_staged``.
+        Equal to ``run_segment`` on the embedded segments."""
+        self._rows(staged, "staged rows")
+        return self._each(
+            lambda rx, st, x: rx.jit_run_segment_staged(st, x, n2),
+            state, staged)
 
     def run_segment_grouped(self, state, segments, group: int = 32):
         """``run_segment`` as sequential sub-batches of ``group`` channels

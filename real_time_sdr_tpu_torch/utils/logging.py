@@ -189,11 +189,17 @@ class SpanRecorder:
         Kept only while recording."""
         return self._open(name, "phase", gid, None, profile)
 
-    def span(self, name: str, parent: Span) -> Span | None:
-        """Open a step inside ``parent`` (memory only; None unless
+    def span(self, name: str, parent: Span,
+             t0: int | None = None) -> Span | None:
+        """Open a step inside ``parent``, from ``t0``
+        (``time.perf_counter_ns``; default now) (memory only; None unless
         recording)."""
-        return (self._open(name, "span", parent.gid, parent, False)
-                if self.on else None)
+        if not self.on:
+            return None
+        sp = self._open(name, "span", parent.gid, parent, False)
+        if t0 is not None:
+            sp.t0 = t0
+        return sp
 
     def flight(self, name: str, parent: Span,
                t0: int | None = None) -> Span | None:

@@ -207,10 +207,11 @@ def test_cli_bad_arguments_exit_2(args, tmp_path, capsys):
 
 
 def test_cli_parser_matches_jax_surface(jcli):
-    """Same positionals, flags, defaults and choices as the JAX CLI, and two
-    flags of the port's own: ``--wb-fir``, the counterpart of the JAX
-    package's RTSDR_WB_FIR / RTSDR_CHAN_FIR environment variables, and
-    ``--trace-spans`` (the serving loops' span recorder)."""
+    """Same positionals, flags, defaults and choices as the JAX CLI, and
+    three flags of the port's own: ``--wb-fir``, the counterpart of the JAX
+    package's RTSDR_WB_FIR / RTSDR_CHAN_FIR environment variables,
+    ``--trace-spans`` (the serving loops' span recorder) and ``--tuners``
+    (the multi-tuner loop)."""
     def surface(ap):
         return {a.dest: (tuple(a.option_strings), a.default,
                          None if a.choices is None else tuple(a.choices),
@@ -219,6 +220,7 @@ def test_cli_parser_matches_jax_surface(jcli):
     assert mine.pop("wb_fir") == (("--wb-fir",), None,
                                   ("f32", "bf16", "bf16x2"), None)
     assert mine.pop("trace_spans") == (("--trace-spans",), None, None, None)
+    assert mine.pop("tuners") == (("--tuners",), None, None, None)
     assert mine == surface(jcli.make_parser())
     with pytest.raises(SystemExit) as e:
         cli.make_parser().parse_args(["7"])
