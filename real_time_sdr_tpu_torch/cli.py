@@ -22,19 +22,20 @@ operand ``[tail | group]`` written into a ring of pinned host buffers, one
 asynchronous copy, served by ``Receiver.jit_run_segment_staged``; else
 ``Receiver.jit_step``), replays the receiver's captured graph for the
 group's shape (the first group of a shape, and an EOF partial group,
-capture one; on the CPU the eager receiver runs), and starts the PCM and
-RDS copies back into pinned memory. Up to ``--pipeline`` groups stay in flight; a
-drain waits once per group on a CUDA event, then writes the PCM and feeds
-the RDS framer. The wideband loop does the same with one (S, ...) PCM
-tensor and one fetch per segment, served by
-``ChannelBank.run_wideband_u8_jit``, and hands each fetch to a drain
-thread that waits on the segment's event and drains it as soon as the
-device is done, not when later input arrives; there ``--pipeline`` bounds
-the segments submitted and not yet drained (0: each segment is drained
-before the next read). With ``--tuners`` (``run_tuners``) the same
-serving thread and drain worker decode independent tuners, one input per
-tuner, as the rows of one channel bank (``ChannelBank.run_segment_staged``
-from one pinned (T, ...) staged slot a segment):
+capture one; on the CPU the eager receiver runs), starts the PCM and RDS
+copies back into pinned memory and hands the fetch to a drain thread
+(``_DrainWorker``), which waits once per group on its CUDA event and then
+writes the PCM and feeds the RDS framer: each group is drained as soon as
+the device is done, not when later input arrives. An upload waits while
+more than ``--pipeline`` groups are not yet drained (0: each group is
+drained before the next read). The wideband loop does the same with one
+(S, ...) PCM tensor and one fetch per segment, served by
+``ChannelBank.run_wideband_u8_jit``; there ``--pipeline`` bounds the
+segments submitted and not yet drained. With ``--tuners``
+(``run_tuners``) the same serving thread and drain worker decode
+independent tuners, one input per tuner, as the rows of one channel bank
+(``ChannelBank.run_segment_staged`` from one pinned (T, ...) staged slot a
+segment):
 
     python -m real_time_sdr_tpu_torch.cli 0 r --tuners a.raw,b.raw,c.raw \
         --output-dir stations --segment 4 --pipeline 2
@@ -118,15 +119,15 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--io-depth", type=int, default=4,
                     help="ring-buffer depth for the native I/O threads")
     ap.add_argument("--pipeline", type=int, default=1,
-                    help="groups kept in flight on the device before the "
-                         "PCM fetch syncs; each adds latency but overlaps "
-                         "host work with the device. With --stations or "
-                         "--tuners: the "
-                         "most segments submitted and not yet drained by "
-                         "the drain thread, which drains each as soon as "
-                         "the device has finished it; the next upload "
-                         "waits at this bound (0 = fully synchronous: "
-                         "each group is drained before the next read)")
+                    help="a drain thread drains each group as soon as "
+                         "the device has finished it, and an upload waits "
+                         "while more than this many groups (with "
+                         "--stations or --tuners: this many segments) are "
+                         "submitted and not yet drained; a deeper pipeline "
+                         "overlaps host work with the device when the "
+                         "input arrives faster than real time (0 = fully "
+                         "synchronous: each group is drained before the "
+                         "next read)")
     ap.add_argument("--segment", type=int, default=1, metavar="G",
                     help="aggregate G input blocks per receiver call "
                          "(segment serving): amortizes per-call launch and "
@@ -213,22 +214,26 @@ def _atomic_json(path: str, obj) -> None:
 
 
 def _emit(kind, val) -> None:
-    """The reference CLI's RDS event lines on stderr."""
+    """The reference CLI's RDS event lines on stderr, each event in one
+    write: the drain thread's lines and the serving thread's ``--stats``
+    lines never split each other (``print`` writes the newline apart)."""
     if kind == "group":
         pi, _gt, pty = val
-        print(f"PI: {pi:x}", file=sys.stderr)
-        print(f"PTY: {pty}", file=sys.stderr)
+        line = f"PI: {pi:x}\nPTY: {pty}"
     elif kind == "ps":
-        print(f"Program Service: {val}", file=sys.stderr)
+        line = f"Program Service: {val}"
     elif kind == "radiotext":
-        print(f"RadioText: {val}", file=sys.stderr)
+        line = f"RadioText: {val}"
     elif kind == "ptyn":
-        print(f"Program Type Name: {val}", file=sys.stderr)
+        line = f"Program Type Name: {val}"
     elif kind == "clock":
-        print(f"Clock Time: {val}", file=sys.stderr)
+        line = f"Clock Time: {val}"
     elif kind == "af":
-        print("Alternative Frequencies: "
-              + ", ".join(f"{f:.1f}" for f in val), file=sys.stderr)
+        line = "Alternative Frequencies: " + ", ".join(f"{f:.1f}"
+                                                       for f in val)
+    else:
+        return
+    sys.stderr.write(f"{line}\n")
 
 
 class _Uploader:
@@ -244,12 +249,12 @@ class _Uploader:
     of each row; without one
     (the wideband path) it receives the group as it is. A slot is reused
     ``slots`` groups later. A group is drained only after its event, which
-    follows its upload, completes: the single-station loop drains every
-    group more than ``--pipeline`` groups old, and the wideband loop
-    uploads a segment only while fewer than ``--pipeline`` (at 0: none)
-    are submitted and not yet released by its drain worker. So with
-    ``slots`` >= ``--pipeline`` + 2 no slot is overwritten while its copy
-    is in flight. Unstaged: a plain pageable ``.to(device)`` of the
+    follows its upload, completes, and a loop uploads a group only while
+    few enough are submitted and not yet released by its drain worker: at
+    most ``--pipeline`` in the single-station loop, fewer than
+    ``--pipeline`` (at 0 none) in the multi-row loops. So with ``slots``
+    >= ``--pipeline`` + 2 no slot is overwritten while its copy is in
+    flight. Unstaged: a plain pageable ``.to(device)`` of the
     group."""
 
     def __init__(self, torch, device, nbytes: int, slots: int, staged: bool,
@@ -308,8 +313,9 @@ def _fetch(torch, device, tensors):
 
 
 class _DrainWorker:
-    """The wideband loop's drain on a thread of its own (a one-thread
-    executor): ``drain_one`` runs on each ``submit``ted segment in that
+    """A serving loop's drain on a thread of its own (a one-thread
+    executor; every loop has one): ``drain_one`` runs on each
+    ``submit``ted segment (or the single-station loop's group) in that
     order, as soon as it is submitted (it waits on the segment's event:
     on a card ``Event.synchronize``, which releases the GIL). A segment
     is released when its drain returns. ``wait(n)`` blocks until at most
@@ -425,9 +431,9 @@ def _row_drain(spans, outs, framers, lines: list | None = None):
 
 
 def _wait_bound(worker, bound: int, spans, sub) -> float:
-    """Before an upload of the multi-row loops: wait on the drain worker
-    while ``bound`` segments are not yet drained (the upload ring's slot
-    may still be in flight); returns the seconds waited."""
+    """Before an upload of a serving loop: wait on the drain worker while
+    ``bound`` segments (or groups) are not yet drained (the upload ring's
+    slot may still be in flight); returns the seconds waited."""
     if worker.pending() < bound:
         return 0.0
     spans.count("drain_backpressure")
@@ -466,8 +472,8 @@ def _fetch_rows(torch, device, spans, sub, sp, out, pcm, rds: bool, g: int,
 
 def _segment_done(args, worker, t0: float, waited: float, g: int,
                   n_blocks: int, budget: float) -> float:
-    """After a multi-row loop has handed a segment of ``g`` blocks to its
-    worker: at ``--pipeline 0`` wait for its drain, then the segment's
+    """After a serving loop has handed a segment (or group) of ``g`` blocks
+    to its worker: at ``--pipeline 0`` wait for its drain, then the segment's
     ``--stats`` time (from ``t0``, ``waited`` and this wait on the worker
     left out, plus the time of the drains released since the line before)
     and, with ``--stats``, its line. Returns that time."""
@@ -1044,11 +1050,30 @@ def _resume_wideband(args, fe, fused, offsets, framers, new_framer):
 
 def _serve(args, torch, device, rx, spans) -> int:
     """Single-station mode: one tuner's blocks through the receiver, PCM
-    out through the native ring writer. ``spans``: the
-    ``utils.logging.SpanRecorder`` of ``--trace-spans``, with the
-    wideband loop's phases and spans (``upload`` here stages ``[tail |
-    group]`` as well; ``write`` / ``rds`` are ``writer.write`` and
-    ``framer.feed``) and counters ``groups``, ``blocks``, ``rds_feeds``."""
+    out through the native ring writer.
+
+    The serving thread reads a group (``--segment`` blocks), uploads it,
+    replays the receiver's graph, starts the fetch and hands it to a
+    ``_DrainWorker``, whose thread waits on the group's event and then,
+    block by block, writes its PCM (``writer.write``), feeds its RDS bits
+    to the framer and takes the ``--monitor`` snapshot: a group is
+    drained as soon as the device is done with it, not when later input
+    arrives. An upload waits while more than ``--pipeline`` groups are not
+    yet drained (the depth of the loop that drained every group more than
+    ``--pipeline`` groups old once the next was read), and at
+    ``--pipeline 0`` the serving thread waits for each group's drain
+    before the next read. EOF and ``--max-blocks`` wait for every drain
+    before the totals, the files' close and ``--checkpoint``. A
+    ``--stats`` line, printed by the serving thread after each handoff,
+    is the group's submit (its waits on the worker left out) plus the time
+    of the drains released since the line before, their event waits
+    included (``_segment_done``).
+
+    ``spans``: the ``utils.logging.SpanRecorder`` of ``--trace-spans``,
+    with ``run_wideband``'s phases, spans and counters (``upload`` here
+    stages ``[tail | group]`` as well; ``write`` / ``rds`` are
+    ``writer.write`` and ``framer.feed``; ``groups`` in place of
+    ``segments``)."""
     from real_time_sdr_tpu_torch.models.rds_framing import RdsFramer
     from real_time_sdr_tpu_torch.utils import state as state_util
     from real_time_sdr_tpu_torch.utils.audio import mono_pcm, stereo_pcm
@@ -1167,114 +1192,111 @@ def _serve(args, torch, device, rx, spans) -> int:
     n_blocks = 0
     t_total = 0.0
     latencies: list[float] = []
-    # (host tensors, event, ingest time, blocks, in_flight span) per group
-    # in flight; the device runs the groups in order, so they complete in
-    # order
-    in_flight: deque = deque()
     now = time.perf_counter_ns
     n_groups = 0
 
-    def drain(k: int) -> None:
+    def drain_one(item) -> None:
+        """One group ((pcm, nbits, bits, clean), event, ingest time,
+        blocks, in_flight span, group), on the worker's thread."""
         nonlocal n_blocks
-        rng = spans.live and spans.profile_range("drain")
-        for _ in range(k):
-            (pcm, nbits, bits, clean), ev, t_in, g, fl = in_flight.popleft()
-            dr = fl and spans.phase("drain", fl.gid, profile=False)
-            if fl:
-                spans.end(fl)
-            dw = dr and spans.span("drain_wait", dr)
-            if ev is not None:
-                ev.synchronize()   # the only wait on the device
-            if dw:
-                spans.end(dw)
-            pcm = pcm.numpy()
-            step_len = pcm.shape[0] // g
-            for j in range(g):
-                t = dr and now()
-                writer.write(pcm[j * step_len:(j + 1) * step_len])
-                if dr:
-                    t1 = now()
-                    spans.add(dr, "write", t1 - t)
-                if framer is not None:
-                    nj = int(nbits[j])
-                    if nj > 0:
-                        framer.feed(bits[j, :nj].numpy())
-                        if dr:
-                            spans.count("rds_feeds")
-                    if dr:
-                        spans.add(dr, "rds", now() - t1)
-                n_blocks += 1
-                if args.monitor and n_blocks % monitor_every == 0:
-                    _monitor_snapshot(
-                        args.monitor, cfg, stereo, framer, n_blocks,
-                        pcm[j * step_len:(j + 1) * step_len],
-                        None if clean is None else clean[j].numpy())
-            latencies.append(time.perf_counter() - t_in)
+        (pcm, nbits, bits, clean), ev, t_in, g, fl, gid = item
+        dr = spans.live and spans.phase("drain", gid)
+        if fl:
+            spans.end(fl, dr.t0)
+        dw = dr and spans.span("drain_wait", dr)
+        if ev is not None:
+            ev.synchronize()   # the only wait on the device
+        if dw:
+            spans.end(dw)
+        pcm = pcm.numpy()
+        step_len = pcm.shape[0] // g
+        for j in range(g):
+            t = dr and now()
+            writer.write(pcm[j * step_len:(j + 1) * step_len])
             if dr:
-                spans.end(dr)
-        if rng:
-            spans.close_range(rng)
+                t1 = now()
+                spans.add(dr, "write", t1 - t)
+            if framer is not None:
+                nj = int(nbits[j])
+                if nj > 0:
+                    framer.feed(bits[j, :nj].numpy())
+                    if dr:
+                        spans.count("rds_feeds")
+                if dr:
+                    spans.add(dr, "rds", now() - t1)
+            n_blocks += 1
+            if args.monitor and n_blocks % monitor_every == 0:
+                _monitor_snapshot(
+                    args.monitor, cfg, stereo, framer, n_blocks,
+                    pcm[j * step_len:(j + 1) * step_len],
+                    None if clean is None else clean[j].numpy())
+        latencies.append(time.perf_counter() - t_in)
+        if dr:
+            spans.end(dr)
 
-    rw = spans.live and spans.phase("read_wait", 0)
-    nxt = read_group()
-    if rw:
-        spans.end(rw)
-    while nxt is not None:
-        t0 = time.perf_counter()
-        seg, t_in, g = nxt
-        sub = spans.live and spans.phase("submit", n_groups)
-        # an EOF partial group runs at its exact shape (the real blocks'
-        # outputs do not depend on padding): a graph of its own
-        sp = sub and spans.span("upload", sub)
-        x = upload(seg)[None]
-        if sp:
-            spans.end(sp)
-            sp = spans.span("dispatch", sub)
-        state, out = (rx.jit_run_segment_staged(state, x, seg.shape[0])
-                      if upload.staged else rx.jit_step(state, x))
-        if sp:
-            spans.end(sp)
-            sp = spans.span("fetch", sub)
-        pcm = pcm_of(out)
-        nbits = bits = clean = None
-        if framer is not None:
-            nbits = out.rds_nbits[0].reshape(g)
-            bits = out.rds_bits[0].reshape(g, -1)
-            # only groups that will write a --monitor snapshot fetch the
-            # (larger) RRC output
-            if args.monitor and any((n_disp + j + 1) % monitor_every == 0
-                                    for j in range(g)):
-                clean = out.rds_clean[0].reshape(g, -1)
-        host, ev = _fetch(torch, device, [pcm, nbits, bits, clean])
-        fl = None
-        if sp:
-            spans.end(sp)
-            fl = spans.flight("in_flight", sub)
-            spans.count("groups")
-            spans.count("blocks", g)
-        if sub:
-            spans.end(sub)
-        n_disp += g
-        n_groups += 1
-        in_flight.append((host, ev, t_in, g, fl))
-        rw = spans.live and spans.phase("read_wait", n_groups)
-        r0 = time.perf_counter()
+    # the device runs the groups in order, so they complete in order
+    worker = _DrainWorker(drain_one)
+    # an upload waits while this many groups are not yet drained
+    bound = args.pipeline + 1
+    try:
+        rw = spans.live and spans.phase("read_wait", 0)
         nxt = read_group()
-        # blocked on the SOURCE, not processing: a paced live source
-        # delivers a g-block group in g*30.6 ms
-        read_wait = time.perf_counter() - r0
         if rw:
             spans.end(rw)
-        if len(in_flight) > args.pipeline:
-            # drain half the window per wait: the queue stays half full,
-            # so the device keeps running while the host writes
-            drain(max(1, (len(in_flight) + 1) // 2))
-        dt = max(time.perf_counter() - t0 - read_wait, 1e-9)
-        t_total += dt
-        if args.stats:
-            print(f"block {n_blocks}: {dt*1e3:.2f} ms "
-                  f"({g*budget/dt:.1f}x real time)", file=sys.stderr)
-    drain(len(in_flight))
+        while nxt is not None:
+            t0 = time.perf_counter()
+            seg, t_in, g = nxt
+            sub = spans.live and spans.phase("submit", n_groups)
+            waited = _wait_bound(worker, bound, spans, sub)
+            # an EOF partial group runs at its exact shape (the real
+            # blocks' outputs do not depend on padding): a graph of its own
+            sp = sub and spans.span("upload", sub)
+            x = upload(seg)[None]
+            if sp:
+                spans.end(sp)
+                sp = spans.span("dispatch", sub)
+            state, out = (rx.jit_run_segment_staged(state, x, seg.shape[0])
+                          if upload.staged else rx.jit_step(state, x))
+            if sp:
+                spans.end(sp)
+                sp = spans.span("fetch", sub)
+            pcm = pcm_of(out)
+            nbits = bits = clean = None
+            if framer is not None:
+                nbits = out.rds_nbits[0].reshape(g)
+                bits = out.rds_bits[0].reshape(g, -1)
+                # only groups that will write a --monitor snapshot fetch
+                # the (larger) RRC output
+                if args.monitor and any(
+                        (n_disp + j + 1) % monitor_every == 0
+                        for j in range(g)):
+                    clean = out.rds_clean[0].reshape(g, -1)
+            host, ev = _fetch(torch, device, [pcm, nbits, bits, clean])
+            fl = None
+            if sp:
+                spans.end(sp)
+                fl = spans.flight("in_flight", sub, sp.t1)
+                spans.count("groups")
+                spans.count("blocks", g)
+            if sub:
+                spans.end(sub)
+            worker.submit((host, ev, t_in, g, fl, n_groups))
+            n_disp += g
+            n_groups += 1
+            t_total += _segment_done(args, worker, t0, waited, g, n_disp,
+                                     budget)
+            # blocked on the SOURCE, not processing: a paced live source
+            # delivers a g-block group in g*30.6 ms
+            rw = spans.live and spans.phase("read_wait", n_groups)
+            nxt = read_group()
+            if rw:
+                spans.end(rw)
+                if not worker.pending():
+                    spans.count("drained_before_next_read")
+        worker.wait(0)
+        t_total += worker.take_ns() / 1e9
+    finally:
+        worker.close()
     reader.close()
     writer.close()  # drains the ring
     if reader.dropped:

@@ -126,11 +126,10 @@ class SpanRecorder:
     (memory only). A ``flight`` is a wait that overlaps the phases, such
     as a segment's time in flight (memory only: as a profiler range it
     would cover every idle gap). ``add`` sums time onto a span from many
-    short calls inside it. ``profile_range`` opens a profiler range alone,
-    for consecutive phases that share one (a drain of several segments).
-    A counter is a name and a running total, sampled at each ``count``.
-    Spans and counters may come from several threads (the wideband loop's
-    drain runs in a worker); each span keeps its thread.
+    short calls inside it. A counter is a name and a running total,
+    sampled at each ``count``. Spans and counters may come from several
+    threads (each loop's drain runs in a worker); each span keeps its
+    thread.
 
     Recording (``on``, set by ``start``) is off by default. The profiler
     ranges do not wait for it: ``live`` is true while recording or while a
@@ -183,11 +182,10 @@ class SpanRecorder:
                 self.natives[sp.tid] = threading.get_native_id()
         return sp
 
-    def phase(self, name: str, gid=None, profile: bool = True) -> Span:
-        """Open a top-level step of segment or group ``gid``; with
-        ``profile`` False it sends no range of its own to the profiler.
-        Kept only while recording."""
-        return self._open(name, "phase", gid, None, profile)
+    def phase(self, name: str, gid=None) -> Span:
+        """Open a top-level step of segment or group ``gid``, a profiler
+        range while a session runs. Kept only while recording."""
+        return self._open(name, "phase", gid, None, True)
 
     def span(self, name: str, parent: Span,
              t0: int | None = None) -> Span | None:
@@ -228,13 +226,6 @@ class SpanRecorder:
         if sp.args is None:
             sp.args = {}
         sp.args[key] = sp.args.get(key, 0) + ns
-
-    @staticmethod
-    def profile_range(name: str):
-        """An entered range ``name`` while a torch.profiler session runs,
-        else None."""
-        return (_enter_range(name) if _autograd_profiler._is_profiler_enabled
-                else None)
 
     @staticmethod
     def close_range(rf) -> None:

@@ -3,8 +3,11 @@ run in-process through ``main`` with ``--cpu --input --output``.
 
 Bounds: PI/PTY/Program Service/RDS summary lines identical to the JAX
 CLI's on the same capture; PCM byte counts exact; PCM byte-identical to
-the in-process port receiver, across ``--pipeline`` depths and across
-``--staged``; ``--segment 4`` within 1 LSB of per-block serving with an
+the in-process port receiver and across ``--staged``; PCM and RDS event
+lines at ``--pipeline`` 1, 2 and 4 as at 0 with the drain thread held
+back until an upload waits on it, and a ``--checkpoint`` pair at
+``--pipeline 12``, its drains held until the end of each half, joining
+to the single run; ``--segment 4`` within 1 LSB of per-block serving with an
 identical RDS trail at tier 3 (measured 1 LSB; the JAX package holds 2 LSB
 at tier 1, whose library-level segment equality tests/test_torch_modes.py
 checks).
@@ -25,6 +28,8 @@ import contextlib
 import io
 import json
 import re
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -118,14 +123,109 @@ def test_cli_no_positionals_is_mode0_mono(station, tmp_path, capsys):
     assert err.startswith("output: 48000 Hz s16le mono")
 
 
-def test_cli_pipeline_depth_identical(station, tmp_path, capsys):
+RDS_EVENTS = ("PI:", "PTY:", "Program Service:", "RadioText:")
+HOLD_S = 60.0
+
+
+@pytest.fixture(scope="module")
+def synchronous(station, tmp_path_factory):
+    """The 24 blocks at tier 3 and ``--pipeline 0``: (PCM, RDS event
+    lines)."""
     path, _ = station
-    args = ["0", "r", "--pll-tier", "3", "--max-blocks", "8"]
-    _, _, p0 = _run(cli.main, args + ["--pipeline", "0"], path,
-                    tmp_path / "p0.pcm", capsys)
-    _, _, p4 = _run(cli.main, args + ["--pipeline", "4"], path,
-                    tmp_path / "p4.pcm", capsys)
-    assert p0 == p4 and len(p0) == 8 * CFG.audio_block * 2 * 2
+    out = tmp_path_factory.mktemp("sync") / "p0.pcm"
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["--cpu", "0", "r", "--pll-tier", "3", "--pipeline",
+                       "0", "--input", str(path), "--output", str(out)])
+    assert rc == 0
+    events = [ln for ln in err.getvalue().splitlines()
+              if ln.startswith(RDS_EVENTS)]
+    assert "Program Service: CLI-TEST" in events
+    return out.read_bytes(), events
+
+
+def _hold_feeds(monkeypatch, until: str) -> None:
+    """Hold the drain thread's first framer feed until the serving thread
+    reaches ``until``: ``"backpressure"``, an upload that found the bound
+    reached, or ``"end"``, its wait for every drain at the end of the
+    stream; every feed takes a millisecond more. A feed held past
+    ``HOLD_S`` raises (the run fails, it does not hang)."""
+    from real_time_sdr_tpu_torch.models.rds_framing import RdsFramer
+    from real_time_sdr_tpu_torch.utils.logging import SpanRecorder
+    reached = threading.Event()
+    real_count, real_wait = SpanRecorder.count, cli._DrainWorker.wait
+    real_feed = RdsFramer.feed
+
+    def count(self, name, n=1):
+        if name == "drain_backpressure":
+            reached.set()
+        real_count(self, name, n)
+
+    def wait(self, n):
+        if n == 0 and self._futs:
+            reached.set()
+        real_wait(self, n)
+
+    def feed(self, bits):
+        if not reached.wait(HOLD_S):
+            raise AssertionError(f"the serving thread never reached {until}")
+        time.sleep(0.001)
+        return real_feed(self, bits)
+    if until == "backpressure":
+        monkeypatch.setattr(SpanRecorder, "count", count)
+    else:
+        monkeypatch.setattr(cli._DrainWorker, "wait", wait)
+    monkeypatch.setattr(RdsFramer, "feed", feed)
+
+
+@pytest.mark.parametrize("pipeline", [1, 2, 4])
+def test_cli_pipeline_depth_identical(station, synchronous, tmp_path,
+                                      capsys, monkeypatch, pipeline):
+    """The drain held back until an upload has waited on it: PCM bytes and
+    RDS event lines as at --pipeline 0, with ``drain_backpressure`` above
+    0 and one group drained a block."""
+    path, _ = station
+    _hold_feeds(monkeypatch, "backpressure")
+    spans = tmp_path / "spans.json"
+    _, err, pcm = _run(cli.main, ["0", "r", "--pll-tier", "3", "--pipeline",
+                                  str(pipeline), "--trace-spans",
+                                  str(spans)],
+                       path, tmp_path / "p.pcm", capsys)
+    p0, events = synchronous
+    assert pcm == p0 and len(p0) == 24 * CFG.audio_block * 2 * 2
+    assert [ln for ln in err.splitlines()
+            if ln.startswith(RDS_EVENTS)] == events
+    counters = json.loads(spans.read_text())["otherData"]["counters"]
+    assert counters["drain_backpressure"] > 0
+    assert counters["groups"] == counters["blocks"] == 24
+
+
+def test_cli_pipeline_checkpoint_after_last_drain(station, synchronous,
+                                                  tmp_path, capsys,
+                                                  monkeypatch):
+    """--pipeline 12 over two halves of 12 blocks with ``--checkpoint``,
+    every framer feed held until the serving thread waits for the last
+    drain: the state and the framer are saved after it, so the halves'
+    PCM and RDS event lines join to the single --pipeline 0 run's."""
+    path, iq = station
+    rest = tmp_path / "rest.raw"
+    iq[12 * 2 * CFG.block_size_iq:].tofile(rest)
+    ck = str(tmp_path / "ck.npz")
+    args = ["0", "r", "--pll-tier", "3", "--pipeline", "12", "--checkpoint",
+            ck]
+    halves = []
+    for k, inp in enumerate((path, rest)):
+        with monkeypatch.context() as m:
+            _hold_feeds(m, "end")
+            rc, err, pcm = _run(cli.main, args + ["--max-blocks", "12"], inp,
+                                tmp_path / f"h{k}.pcm", capsys)
+        assert rc == 0 and f"saved state to {ck}" in err
+        halves.append((pcm, [ln for ln in err.splitlines()
+                             if ln.startswith(RDS_EVENTS)]))
+    assert "resumed RDS framer from" in err
+    p0, events = synchronous
+    assert halves[0][0] + halves[1][0] == p0
+    assert halves[0][1] + halves[1][1] == events
 
 
 

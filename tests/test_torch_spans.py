@@ -9,13 +9,14 @@ defaults) holds the phases ``read_wait`` / ``submit`` / ``drain`` with
 their inner spans under the right parent and segment id, one
 ``in_flight`` per segment from its fetch to the start of its drain, no
 two phases of one thread overlapping, and the ``segments`` / ``groups``
-and ``blocks`` counters equal to what was served; the wideband loop's
-drains, one a segment, all run in one thread of their own (the drain
-worker), and its ``drain_backpressure`` counts its ``backpressure_wait``
-spans; ``graph_captures`` counts each new graph; under a torch.profiler
-session (for the wideband loop, one that records every thread) every
-phase lies within 0.25 ms of its own profiler range on the profiler's own
-clock, the wideband drains' in the worker's thread.
+and ``blocks`` counters equal to what was served; in both loops the
+drains, one a segment or group, all run in one thread of their own (the
+drain worker), the reads and submits in another, each ``in_flight`` ends
+at its drain's start, and ``drain_backpressure`` counts the
+``backpressure_wait`` spans; ``graph_captures`` counts each new graph;
+under a torch.profiler session that records every thread every phase
+lies within 0.25 ms of its own profiler range on the profiler's own
+clock, the drains' in the worker's thread.
 """
 
 import contextlib
@@ -186,14 +187,11 @@ def test_trace_spans_file_of_each_loop(captures, kind, tmp_path):
             assert kind_ == "flight" and name == "in_flight"
             fetch = [s for s in spans.values()
                      if s[0] == "fetch" and s[4]["parent"] == a["parent"]]
-            if kind == "one":
-                assert fetch[0][3] <= t0 <= fetch[0][3] + 100
-                assert t1 <= drains[a["id"]][0] + 100
-            else:   # it shares the fetch's end stamp and the drain's start
-                # stamp (the fetch's end is written as ts + dur: 1 ns for
-                # the rounding)
-                assert abs(t0 - fetch[0][3]) < 1e-3
-                assert t1 == drains[a["id"]][0]
+            # it shares the fetch's end stamp and the drain's start stamp
+            # (the fetch's end is written as ts + dur: 1 ns for the
+            # rounding)
+            assert abs(t0 - fetch[0][3]) < 1e-3
+            assert t1 == drains[a["id"]][0]
     assert sum(s[0] == "in_flight" for s in spans.values()) == len(submits)
     for a in (s[4] for s in spans.values() if s[0] == "drain"):
         assert a["write_ms"] >= 0 and a["rds_ms"] >= 0
@@ -206,12 +204,12 @@ def test_trace_spans_file_of_each_loop(captures, kind, tmp_path):
     for k, s in spans.items():
         if s[1] == "phase":
             threads.setdefault(s[0], set()).add(tid_of[k])
-    if kind == "one":       # one thread
-        assert len(set().union(*threads.values())) == 1
-    else:                   # every drain in the worker's thread
-        assert len(threads["drain"]) == 1
-        assert threads["read_wait"] == threads["submit"]
-        assert threads["drain"] != threads["submit"]
+    # every drain in the worker's thread, the reads and submits in the
+    # serving thread
+    assert len(threads["drain"]) == 1
+    assert threads["read_wait"] == threads["submit"]
+    assert len(threads["submit"]) == 1
+    assert threads["drain"] != threads["submit"]
     for tid in set().union(*threads.values()):
         phases = sorted((t0, t1) for k, (n, c, t0, t1, a) in spans.items()
                         if c == "phase" and tid_of[k] == tid)
@@ -248,23 +246,21 @@ def test_graph_captures_are_counted(captures, monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("kind", ["one", "wide", "wide-sync"])
 def test_phases_on_the_profiler_clock(captures, kind, tmp_path):
-    """Under a CPU torch.profiler session (for the wideband loop one that
-    records every thread): each phase's start and end in the file lie
-    within 0.25 ms of its range in the profiler's Chrome trace (``ts``
-    plus ``baseTimeNanoseconds`` in both), in the phase's own thread.
-    The one-station loop's drain call of several groups is one range over
-    its drain spans; the wideband loop's drain worker opens one range a
-    segment, at ``--pipeline 2``, where the worker and the serving thread
-    run Python at once, and at ``--pipeline 0`` (``wide-sync``), where
-    they take turns."""
+    """Under a CPU torch.profiler session that records every thread: each
+    phase's start and end in the file lie within 0.25 ms of its range in
+    the profiler's Chrome trace (``ts`` plus ``baseTimeNanoseconds`` in
+    both), in the phase's own thread. Each loop's drain worker opens one
+    range a group or segment, in its own thread: the one-station loop at
+    its default ``--pipeline 1``, the wideband loop at ``--pipeline 2``,
+    where the worker and the serving thread run Python at once, and at
+    ``--pipeline 0`` (``wide-sync``), where they take turns."""
     path = tmp_path / "spans.json"
     extra = ["--trace-spans", str(path)]
     if kind == "one":
         extra += ["--pll-tier", "3"]
     elif kind == "wide-sync":
         extra += ["--pipeline", "0"]
-    with (profile(activities=[ProfilerActivity.CPU]) if kind == "one"
-          else _profile()) as prof:
+    with _profile() as prof:
         _main(_argv(kind.split("-")[0], captures, extra))
     prof.export_chrome_trace(str(tmp_path / "prof.json"))
     pdoc, pev = _events(tmp_path / "prof.json")
@@ -287,14 +283,12 @@ def test_phases_on_the_profiler_clock(captures, kind, tmp_path):
         assert inside, (name, r0)
         assert abs(min(inside)[0] - r0) < TOL_US, (name, min(inside)[0] - r0)
         assert abs(max(t1 for _, t1 in inside) - r1) < TOL_US, name
-        assert (name == "drain" and kind == "one") or len(inside) == 1
+        assert len(inside) == 1
         covered += inside
     assert sorted(covered) == sorted((t0, t1) for t0, t1, _ in phases)
     tids = {name: {range_tid[(r0, name)] for r0, _, n in ranges if n == name}
             for name in PHASES}
-    if kind != "one":       # one range a segment, in the worker's thread
-        assert sum(n == "drain" for *_, n in ranges) == sum(
-            n == "drain" for *_, n in phases)
-        assert len(tids["drain"]) == 1 and tids["drain"] != tids["submit"]
-    else:
-        assert tids["drain"] == tids["submit"]
+    # one range a segment or group, in the worker's thread
+    assert sum(n == "drain" for *_, n in ranges) == sum(
+        n == "drain" for *_, n in phases)
+    assert len(tids["drain"]) == 1 and tids["drain"] != tids["submit"]
